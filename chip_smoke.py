@@ -13,13 +13,15 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               prints the build seconds and each kernel's ptxas lines.
 3. kernel   — holds each kernel against its plain PyTorch version on the card
               and times kernel, plain version and (where one exists) the
-              one-call library equivalent with CUDA events (median of 30
-              after 5 warmup launches).
+              one-call library equivalent with CUDA events (``ms``: median
+              of 30 after 5 warmup calls, the wrapper's host work
+              included), and the kernel alone from a torch.profiler trace
+              (``device_ms``: its device time summed over the traced
+              launches of 30 calls / their count).
               K2 (mel_power) at the serve path's shapes: rtol 2e-3 / atol
-              1e-4 in power, 0.05 dB after ``amplitude_to_db_torch``; the
-              bound counts the function's least work (a real FFT per frame),
-              and the DFT-as-GEMM roofline of the kernel's own algorithm is
-              printed beside it.
+              1e-4 in power, 0.05 dB after ``amplitude_to_db_torch``, and
+              two launches on one wave bitwise equal; the bound counts the
+              function's least work (a real FFT per frame).
               K1 (roll_rasterize) at the JAX kernel tests' shapes, the
               pickler's (8, 4096, 300), a dense (8, 16384, 300) and a long
               roll (2, 4096, 2000): bitwise (``torch.equal``); bytes-bound
@@ -116,6 +118,32 @@ def cuda_ms(fn, warmup=5, reps=30) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, kernel_name, warmup=5, reps=30) -> tuple[float, int]:
+    """The kernel's own device time per launch in ms, and the launches it
+    is taken over: the device time of the CUDA events named ``kernel_name``
+    in a torch.profiler trace of ``reps`` calls of ``fn``, summed and divided
+    by their count. The trace may drop an event at the edge of its window,
+    so the count may fall short of ``reps``; it may not exceed it (one
+    launch per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and kernel_name in ev.name]
+    if not reps // 2 <= len(events) <= reps:
+        raise AssertionError(f"{kernel_name}: {len(events)} device events for {reps} calls")
+    return sum(ev.time_range.end - ev.time_range.start for ev in events) / 1e3 / len(events), \
+        len(events)
+
+
 def mel_bound_ms(n_samples, hop, n_frames, fb_nonzeros, n_fft=2048, n_mels=128
                  ) -> tuple[float, str]:
     """Least time for one mel power call, from the least work of the
@@ -132,14 +160,6 @@ def mel_bound_ms(n_samples, hop, n_frames, fb_nonzeros, n_fft=2048, n_mels=128
     nbytes = 4 * samples + 4 * fb_nonzeros + 4 * n_mels * n_frames
     t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def mel_dft_gemm_bound_ms(n_frames, n_fft=2048, n_mels=128) -> float:
-    """Roofline of the kernel's own algorithm, not of the function: the DFT
-    as two dense products against the cos/-sin bases (4 n_fft operations per
-    bin and frame), the power, and a dense mel product, over the f32 peak."""
-    n_freqs = n_fft // 2 + 1
-    return 1e3 * n_frames * n_freqs * (4 * n_fft + 3 + 2 * n_mels) / F32_PEAK_FLOPS
 
 
 def _ptxas(log):
@@ -182,7 +202,7 @@ def phase_kernel():
     import torch
 
     from gandes_tpu_torch.music.mel import amplitude_to_db_torch, mel_filterbank
-    from gandes_tpu_torch.ops.mel_power import mel_power_cuda, mel_power_reference
+    from gandes_tpu_torch.ops.mel_power import kernel, mel_power_cuda, mel_power_reference
 
     sr, n_fft = 44100, 2048
     # (label, samples, hop, htk, norm_slaney): the fixed-hop cases of the
@@ -202,6 +222,7 @@ def phase_kernel():
                   norm_slaney=slaney)
         ref = mel_power_reference(wav, sr, **kw)
         out = mel_power_cuda(wav, sr, **kw)
+        repeat_equal = bool(torch.equal(out, mel_power_cuda(wav, sr, **kw)))
         torch.cuda.synchronize()
         if out.shape != ref.shape:
             raise AssertionError(f"{label}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
@@ -217,21 +238,29 @@ def phase_kernel():
             return fb @ spec.abs().square()
 
         ms = cuda_ms(lambda: mel_power_cuda(wav, sr, **kw))
+        kernel_ms, traced = device_ms(lambda: mel_power_cuda(wav, sr, **kw), "mel_power_kernel")
         plain_ms = cuda_ms(lambda: mel_power_reference(wav, sr, **kw))
         library_ms = cuda_ms(library)
         frames = int(out.shape[1])
+        # the device memory K2's constants hold for this n_fft and filterbank
+        k = kernel()
+        consts = (*k.tables(n_fft, wav.device),
+                  *k.filterbank(sr, n_fft, 128, 20, 8300, htk, slaney, wav.device)[:2])
         bound_ms, bound_by = mel_bound_ms(n, hop, frames, int(torch.count_nonzero(fb)), n_fft,
                                           128)
         row = {"phase": "kernel", "name": "mel_power", "case": label, "samples": n, "hop": hop,
                "frames": frames, "max_abs_err": float(err.max()),
                "max_rel_err": float((err / ref.abs().clamp(min=1e-30)).max()),
-               "db_err": db_err, "ok": ok_power and db_err <= 0.05, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "dft_gemm_bound_ms": mel_dft_gemm_bound_ms(frames, n_fft, 128)}
+               "db_err": db_err, "repeat_equal": repeat_equal,
+               "ok": ok_power and db_err <= 0.05 and repeat_equal, "ms": ms,
+               "device_ms": kernel_ms, "traced_launches": traced, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "below_library": ms < library_ms,
+               "constants_bytes": sum(t.numel() * t.element_size() for t in consts)}
         emit(row)
         rows.append(row)
         if not row["ok"]:
-            raise AssertionError(f"mel_power {label}: kernel disagrees with its plain version")
+            raise AssertionError(f"mel_power {label}: kernel disagrees with its plain version "
+                                 f"or with itself")
     return rows
 
 
@@ -289,6 +318,8 @@ def phase_kernel_roll():
                "max_abs_err": float((out - ref).abs().max()), "cells_set": int(ref.count_nonzero())}
         if timed:
             row["ms"] = cuda_ms(lambda: rasterize_cuda(*ev, num_steps=T, start=start))
+            row["device_ms"], row["traced_launches"] = device_ms(
+                lambda: rasterize_cuda(*ev, num_steps=T, start=start), "roll_rasterize_kernel")
             row["plain_ms"] = cuda_ms(lambda: rasterize_events_reference(
                 *ev, num_steps=T, start=start))
             row["bound_ms"], row["bound_by"] = roll_bound_ms(B, E, T)
@@ -707,8 +738,9 @@ def main() -> int:
                 "source": "gandes_tpu_torch/ops/csrc/mel_power.cu",
                 "replaces": "gandes_tpu/ops/pallas_mel.py:101",
                 "launches": launches["mel_power"], "max_abs_err": max(x["max_abs_err"] for x in rows),
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]},
+                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]},
                # library_ms null: no single PyTorch call rasterizes ordered,
                # last-writer-wins spans (index_put_ with duplicate indices
                # leaves the winner unspecified)
@@ -717,8 +749,8 @@ def main() -> int:
                 "replaces": "gandes_tpu/ops/pallas_roll.py:95",
                 "launches": roll_launches,
                 "max_abs_err": max(x["max_abs_err"] for x in roll_rows),
-                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": None}]
+                "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}]
     emit({"kernels": kernels})
     print(f"total_s {time.perf_counter() - t_start:.1f}")
     print(smi)

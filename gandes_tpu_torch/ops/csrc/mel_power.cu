@@ -1,189 +1,174 @@
-// K2: fused mel power spectrogram (frame + hann window + real DFT + power +
-// mel projection) for Hopper, sm_90a.
+// K2: fused mel power spectrogram (frame + hann window + real FFT + power +
+// sparse mel projection) for Hopper, sm_90a. One launch per call.
 //
 // Replaces the TPU kernel gandes_tpu/ops/pallas_mel.py::_kernel, launched by
 // _mel_power_pallas (pl.pallas_call at pallas_mel.py:101). Same function:
 // out[m, f] = sum_b fb[m, b] * |sum_k x[f*hop + k] * w[k] * e^{-2 pi i k b / n_fft}|^2
 // over the reflect-padded wave x, periodic hann window w, b < n_fft/2 + 1.
 //
-// What bounds it on this card: operations. At the serve shape (216 frames,
-// n_fft 2048, 1025 bins) the DFT is 216*1025*2048*2*2 = 1.8 GFLOP against
-// well under 1 MB of samples needed, so f32 FMA issue rate (67 TFLOP/s
-// outside the tensor cores) is the roofline; the mel projection adds 57 MFLOP.
+// What bounds it on this card: latency and bytes, not operations. A real FFT
+// per frame is ~12 MFLOP at the serve shape (216 frames, n_fft 2048), and the
+// bound (wave read once, output written once) is ~0.56 us, below launch
+// latency. The Pallas kernel evaluated the DFT as dense matmuls because the
+// TPU's matrix unit makes that cheap; here that was 1.8 GFLOP and 17.8 MB of
+// cos/sin bases streamed from L2 by every CTA. Nothing in an FFT is a product
+// large enough to feed wgmma, and TMA has no tile to move: the resource that
+// matters is shared memory, which holds the whole transform of a frame.
 //
-// Design (simple and exact in f32; no tensor cores, no TMA yet):
-// * grid = (frame tiles of BM, frequency tiles of BN): enough CTAs to cover
-//   the SMs at 216 frames, where one CTA per frame tile would leave most
-//   SMs idle.
-// * Each k-step stages BM frames x KC samples into shared memory straight
-//   from the wave at frame*hop + k, reflecting at both ends in the index
-//   math: the frame matrix and the padded wave are never materialised (the
-//   TPU kernel needed both because Mosaic cannot load at arbitrary offsets).
-// * The hann-windowed cos/-sin bases (built once per n_fft in float64 and
-//   cast to f32 by the wrapper, resident on the device) are staged tile by
-//   tile; each thread keeps a 2-frame x 4-bin register tile of re and im.
-// * Epilogue: power = re^2 + im^2 into shared memory, then each thread
-//   projects the tile's bins onto one mel row for the CTA's frames.
-// * Frequency tiles write partial mel sums; a second kernel adds them in a
-//   fixed order (deterministic, no atomics) and writes (n_mels, n_frames).
+// Design:
+// * grid = one CTA of 256 threads per frame; the frame's samples are read
+//   from the wave at frame*hop + k - n_fft/2 with the reflection in the index
+//   math (no padded copy, no frame matrix), multiplied by the window table
+//   and packed as n_fft/2 complex values z[n] = x[2n] + i x[2n+1].
+// * A Stockham autosort FFT of N = n_fft/2 points in shared memory (two
+//   N-point complex ping-pong buffers): radix-4 passes, preceded by one
+//   radix-2 pass when log2 N is odd; no bit reversal, one __syncthreads per
+//   pass. Twiddles come from a table of W_{n_fft}^k, k < N, built in float64
+//   on the host and cast to f32 (W^{k+N} = -W^k covers the rest).
+// * Real-FFT post-processing X[k] = E[k] + W_{n_fft}^k O[k] with
+//   E = (Z[k] + conj Z[N-k]) / 2, O = -i (Z[k] - conj Z[N-k]) / 2, and the
+//   power |X[k]|^2, only for the bins below n_bins (the filterbank's last
+//   nonzero column + 1): bins above cannot reach the output.
+// * Sparse mel projection: each mel row is one contiguous band of bins
+//   (first bin, count, offset into the packed weights); thread m sums its
+//   band in bin order and writes out[m, frame]. One writer per output
+//   element, no atomics: the result is bitwise the same from run to run.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 16;       // frames per CTA
-constexpr int BN = 64;       // frequency bins per CTA
-constexpr int KC = 32;       // samples per k-step
-constexpr int TM = 2;        // frames per thread
-constexpr int TN = 4;        // bins per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
+constexpr int THREADS = 256;
+constexpr int SMEM_DEFAULT = 48 * 1024;  // usable without cudaFuncSetAttribute
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// W_{2N}^e for 0 <= e <= 2N - 1 from the half table tw[k] = W_{2N}^k, k < N
+__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int e, int N) {
+  if (e < N) return __ldg(tw + e);
+  const float2 w = __ldg(tw + (e - N));
+  return make_float2(-w.x, -w.y);
+}
 
 __device__ __forceinline__ float reflected_sample(const float* __restrict__ wave,
-                                                  long long n, long long g, int pad) {
-  // g indexes the wave padded by `pad` reflected samples on each side
-  long long x = g - pad;
+                                                  long long n, long long x) {
+  // x indexes the wave; one reflection at each end (the wrapper keeps
+  // n_fft/2 < n)
   if (x < 0) x = -x;
   if (x >= n) x = 2 * (n - 1) - x;
-  return wave[x];
+  return __ldg(wave + x);
 }
 
 __global__ void __launch_bounds__(THREADS)
-dft_power_mel_kernel(const float* __restrict__ wave, long long n_samples, int pad,
-                     int hop, int n_frames, int n_fft,
-                     const float* __restrict__ cos_b, const float* __restrict__ sin_b,
-                     int n_freqs_pad, const float* __restrict__ fb_t, int n_mels,
-                     float* __restrict__ partial) {
-  __shared__ float As[BM][KC + 1];  // +1: conflict-free column reads
-  __shared__ __align__(16) float Cs[KC][BN];
-  __shared__ __align__(16) float Ss[KC][BN];
-  __shared__ __align__(16) float Ps[BM][BN];
-
+mel_power_kernel(const float* __restrict__ wave, long long n_samples, int hop, int n_frames,
+                 int log2_half, const float* __restrict__ window,
+                 const float2* __restrict__ tw, int n_bins, const int* __restrict__ band,
+                 const float* __restrict__ weights, int n_mels, float* __restrict__ out) {
+  extern __shared__ float2 smem[];
+  const int N = 1 << log2_half;  // complex points, n_fft / 2
+  float2* src = smem;
+  float2* dst = smem + N;
   const int tid = threadIdx.x;
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  const int f0 = blockIdx.x * BM;
-  const int b0 = blockIdx.y * BN;
+  const int frame = blockIdx.x;
+  const long long x0 = (long long)frame * hop - N;  // centered: pad = n_fft / 2 = N
 
-  float re[TM][TN], im[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      re[i][j] = 0.f;
-      im[i][j] = 0.f;
-    }
-  }
-
-  for (int k0 = 0; k0 < n_fft; k0 += KC) {
-    for (int e = tid; e < BM * KC; e += THREADS) {
-      const int f = e / KC, k = e % KC;
-      const int frame = f0 + f;
-      As[f][k] = frame < n_frames
-                     ? reflected_sample(wave, n_samples, (long long)frame * hop + k0 + k, pad)
-                     : 0.f;
-    }
-    for (int e = tid; e < KC * (BN / 4); e += THREADS) {
-      const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
-      const size_t off = (size_t)(k0 + r) * n_freqs_pad + b0 + c;
-      *reinterpret_cast<float4*>(&Cs[r][c]) = *reinterpret_cast<const float4*>(cos_b + off);
-      *reinterpret_cast<float4*>(&Ss[r][c]) = *reinterpret_cast<const float4*>(sin_b + off);
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int k = 0; k < KC; ++k) {
-      float a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[ty * TM + i][k];
-      const float4 c4 = *reinterpret_cast<const float4*>(&Cs[k][tx * TN]);
-      const float4 s4 = *reinterpret_cast<const float4*>(&Ss[k][tx * TN]);
-      const float c[TN] = {c4.x, c4.y, c4.z, c4.w};
-      const float s[TN] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          re[i][j] = fmaf(a[i], c[j], re[i][j]);
-          im[i][j] = fmaf(a[i], s[j], im[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float4 p;
-    p.x = re[i][0] * re[i][0] + im[i][0] * im[i][0];
-    p.y = re[i][1] * re[i][1] + im[i][1] * im[i][1];
-    p.z = re[i][2] * re[i][2] + im[i][2] * im[i][2];
-    p.w = re[i][3] * re[i][3] + im[i][3] * im[i][3];
-    *reinterpret_cast<float4*>(&Ps[ty * TM + i][tx * TN]) = p;
+  for (int i = tid; i < N; i += THREADS) {
+    const float a = reflected_sample(wave, n_samples, x0 + 2 * i);
+    const float b = reflected_sample(wave, n_samples, x0 + 2 * i + 1);
+    src[i] = make_float2(a * __ldg(window + 2 * i), b * __ldg(window + 2 * i + 1));
   }
   __syncthreads();
 
-  // partial[tile][frame][mel]: consecutive threads write consecutive mels
-  float* out_tile = partial + (size_t)blockIdx.y * n_frames * n_mels;
-  for (int m = tid; m < n_mels; m += THREADS) {
-    float acc[BM];
-#pragma unroll
-    for (int f = 0; f < BM; ++f) acc[f] = 0.f;
-    for (int b = 0; b < BN; ++b) {
-      const float w = fb_t[(size_t)(b0 + b) * n_mels + m];
-#pragma unroll
-      for (int f = 0; f < BM; ++f) acc[f] = fmaf(w, Ps[f][b], acc[f]);
+  int ns = 1;  // length of the sub-transforms done so far
+  if (log2_half & 1) {
+    const int h = N / 2;
+    for (int j = tid; j < h; j += THREADS) {
+      const float2 u = src[j], v = src[j + h];
+      dst[2 * j] = make_float2(u.x + v.x, u.y + v.y);
+      dst[2 * j + 1] = make_float2(u.x - v.x, u.y - v.y);
     }
-#pragma unroll
-    for (int f = 0; f < BM; ++f) {
-      if (f0 + f < n_frames) out_tile[(size_t)(f0 + f) * n_mels + m] = acc[f];
-    }
+    float2* t = src; src = dst; dst = t;
+    ns = 2;
+    __syncthreads();
   }
-}
+  for (; ns < N; ns *= 4) {
+    const int q = N / 4;
+    const int step = N / (2 * ns);  // W_N^{r k N / (4 ns)} = W_{2N}^{r k step}
+    for (int j = tid; j < q; j += THREADS) {
+      const int k = j & (ns - 1);
+      const float2 v0 = src[j];
+      float2 v1 = src[j + q], v2 = src[j + 2 * q], v3 = src[j + 3 * q];
+      if (k) {
+        const int e = k * step;
+        v1 = cmul(v1, twiddle(tw, e, N));
+        v2 = cmul(v2, twiddle(tw, 2 * e, N));
+        v3 = cmul(v3, twiddle(tw, 3 * e, N));
+      }
+      const float2 a0 = make_float2(v0.x + v2.x, v0.y + v2.y);
+      const float2 a1 = make_float2(v0.x - v2.x, v0.y - v2.y);
+      const float2 b0 = make_float2(v1.x + v3.x, v1.y + v3.y);
+      const float2 b1 = make_float2(v1.x - v3.x, v1.y - v3.y);
+      const int o = (j - k) * 4 + k;
+      dst[o] = make_float2(a0.x + b0.x, a0.y + b0.y);
+      dst[o + ns] = make_float2(a1.x + b1.y, a1.y - b1.x);      // a1 - i b1
+      dst[o + 2 * ns] = make_float2(a0.x - b0.x, a0.y - b0.y);
+      dst[o + 3 * ns] = make_float2(a1.x - b1.y, a1.y + b1.x);  // a1 + i b1
+    }
+    float2* t = src; src = dst; dst = t;
+    __syncthreads();
+  }
 
-__global__ void mel_reduce_kernel(const float* __restrict__ partial, int n_tiles,
-                                  int n_frames, int n_mels, float* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // frame * n_mels + mel
-  const int total = n_frames * n_mels;
-  if (idx >= total) return;
-  float s = 0.f;
-  for (int j = 0; j < n_tiles; ++j) s += partial[(size_t)j * total + idx];
-  const int f = idx / n_mels, m = idx % n_mels;
-  out[(size_t)m * n_frames + f] = s;
+  // src holds Z; the power of the used bins goes to the other buffer
+  float* power = reinterpret_cast<float*>(dst);
+  for (int k = tid; k < n_bins; k += THREADS) {
+    const float2 z = src[k & (N - 1)];
+    const float2 r = src[(N - k) & (N - 1)];  // conj taken below
+    const float ex = 0.5f * (z.x + r.x), ey = 0.5f * (z.y - r.y);
+    const float ox = 0.5f * (z.y + r.y), oy = -0.5f * (z.x - r.x);
+    const float2 w = twiddle(tw, k, N);
+    const float xr = ex + (w.x * ox - w.y * oy);
+    const float xi = ey + (w.x * oy + w.y * ox);
+    power[k] = xr * xr + xi * xi;
+  }
+  __syncthreads();
+
+  for (int m = tid; m < n_mels; m += THREADS) {
+    const int first = band[m], count = band[n_mels + m], off = band[2 * n_mels + m];
+    float acc = 0.f;
+    for (int j = 0; j < count; ++j) acc = fmaf(__ldg(weights + off + j), power[first + j], acc);
+    out[(size_t)m * n_frames + frame] = acc;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shapes the wrapper guarantees: n_fft % KC == 0, n_freqs_pad % BN == 0,
-// cos_b/sin_b (n_fft, n_freqs_pad), fb_t (n_freqs_pad, n_mels) with zero rows
-// past the real bins, partial (n_freqs_pad / BN, n_frames, n_mels),
-// out (n_mels, n_frames), pad < n_samples. Returns a cudaError_t.
-int mel_power_launch(const float* wave, long long n_samples, int pad, int hop,
-                     int n_frames, int n_fft, const float* cos_b, const float* sin_b,
-                     int n_freqs_pad, const float* fb_t, int n_mels, float* partial,
-                     float* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = n_freqs_pad / BN;
-  const dim3 grid((n_frames + BM - 1) / BM, n_tiles);
-  dft_power_mel_kernel<<<grid, THREADS, 0, st>>>(wave, n_samples, pad, hop, n_frames,
-                                                 n_fft, cos_b, sin_b, n_freqs_pad, fb_t,
-                                                 n_mels, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = n_frames * n_mels;
-  mel_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(partial, n_tiles, n_frames,
-                                                         n_mels, out);
+// Shapes the wrapper guarantees: n_fft = 2^(log2_half + 1) in [256, 8192],
+// n_fft / 2 < n_samples, window (n_fft) f32, twiddles (n_fft / 2, 2) f32,
+// band (3, n_mels) int32 rows first bin / count / weight offset, every band
+// inside [0, n_bins), n_bins <= n_fft / 2 + 1, out (n_mels, n_frames).
+// Returns a cudaError_t.
+int mel_power_launch(const float* wave, long long n_samples, int hop, int n_frames,
+                     int log2_half, const float* window, const float* twiddles, int n_bins,
+                     const int* band, const float* weights, int n_mels, float* out,
+                     void* stream) {
+  const int smem = static_cast<int>(2 * sizeof(float2)) << log2_half;
+  if (smem > SMEM_DEFAULT) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mel_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mel_power_kernel<<<n_frames, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      wave, n_samples, hop, n_frames, log2_half, window,
+      reinterpret_cast<const float2*>(twiddles), n_bins, band, weights, n_mels, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* mel_power_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int mel_power_tile_constants(int which) {
-  // 0: KC (n_fft granularity), 1: BN (frequency padding granularity)
-  return which == 0 ? KC : BN;
 }
 
 }  // extern "C"

@@ -10,6 +10,10 @@ never emulated. ``mel_power_reference`` is the plain version — reflect pad,
 
 Both return the power mel ``(n_mels, n_frames)`` float32 of the centered
 (reflect-padded) STFT with ``n_frames = 1 + len(wav) // hop_length``.
+
+The kernel reads three small constants, built here in numpy and kept on the
+device: the window, the FFT's twiddles (``fft_twiddles``) and the
+filterbank's compact form (``compact_filterbank``).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -29,6 +34,7 @@ from gandes_tpu_torch.music.mel import (
 )
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "mel_power.cu")
+N_FFT_MIN, N_FFT_MAX = 256, 8192  # powers of two the kernel takes
 
 
 def mel_power_reference(wav, sr, n_fft=2048, hop_length=512, n_mels=128, fmin=20,
@@ -36,6 +42,35 @@ def mel_power_reference(wav, sr, n_fft=2048, hop_length=512, n_mels=128, fmin=20
     """Plain PyTorch power mel: ``power_spectrogram`` + ``_mel_project``."""
     s = power_spectrogram(wav, n_fft=n_fft, hop_length=hop_length)
     return _mel_project(s, sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney)
+
+
+@lru_cache(maxsize=8)
+def fft_twiddles(n_fft: int) -> np.ndarray:
+    """(n_fft // 2, 2) float32: cos and sin of ``-2 pi k / n_fft``, k < n_fft/2,
+    in float64 cast to f32. The kernel's n_fft/2-point FFT takes its twiddles
+    at even k and the real-FFT post-processing at every k."""
+    ang = -2.0 * np.pi * np.arange(n_fft // 2) / n_fft
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+@lru_cache(maxsize=32)
+def compact_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney):
+    """``mel_filterbank`` as contiguous bands: ``(band, weights, n_bins)``.
+
+    ``band`` is (3, n_mels) int32 — each row's first nonzero bin, its count
+    of bins up to its last nonzero one, and its offset into ``weights``, the
+    rows' bands packed one after another (f32). ``n_bins`` is the last
+    nonzero column + 1: no higher bin reaches the output."""
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney)
+    nz = fb != 0
+    used = nz.any(axis=1)
+    first = np.where(used, nz.argmax(axis=1), 0)
+    last = np.where(used, fb.shape[1] - 1 - nz[:, ::-1].argmax(axis=1), -1)
+    count = last - first + 1
+    offset = np.concatenate([[0], np.cumsum(count)[:-1]])
+    weights = np.concatenate([fb[m, first[m]:first[m] + count[m]] for m in range(n_mels)])
+    band = np.stack([first, count, offset]).astype(np.int32)
+    return band, weights.astype(np.float32), int(last.max()) + 1
 
 
 class _Kernel:
@@ -46,48 +81,29 @@ class _Kernel:
 
         self.lib, self.build_log = build_cuda_lib(_SRC, "libmel_power")
         p, i = ctypes.c_void_p, ctypes.c_int
-        self.lib.mel_power_launch.argtypes = [p, ctypes.c_longlong, i, i, i, i, p, p, i, p,
-                                              i, p, p, p]
+        self.lib.mel_power_launch.argtypes = [p, ctypes.c_longlong, i, i, i, p, p, i, p, p,
+                                              i, p, p]
         self.lib.mel_power_launch.restype = i
         self.lib.mel_power_error_string.argtypes = [i]
         self.lib.mel_power_error_string.restype = ctypes.c_char_p
-        self.lib.mel_power_tile_constants.argtypes = [i]
-        self.lib.mel_power_tile_constants.restype = i
-        self.k_step = self.lib.mel_power_tile_constants(0)
-        self.freq_tile = self.lib.mel_power_tile_constants(1)
         self._consts: dict = {}
 
-    def n_freqs_padded(self, n_fft: int) -> int:
-        return -(-(n_fft // 2 + 1) // self.freq_tile) * self.freq_tile
-
-    def bases(self, n_fft: int, device):
-        """Hann-windowed cos/-sin DFT bases (n_fft, n_freqs_padded), built in
-        float64 and cast to f32 (as ``pallas_mel._bases``), zero past the
-        real bins, kept on the device."""
-        key = ("bases", n_fft, str(device))
+    def tables(self, n_fft: int, device):
+        """Window (n_fft) and twiddles (n_fft // 2, 2), on the device."""
+        key = ("tables", n_fft, str(device))
         if key not in self._consts:
-            n_freqs = n_fft // 2 + 1
-            t = np.arange(n_fft)[:, None]
-            k = np.arange(n_freqs)[None, :]
-            ang = 2.0 * np.pi * t * k / n_fft
-            win = _hann_periodic(n_fft)[:, None]
-            cos = np.zeros((n_fft, self.n_freqs_padded(n_fft)), np.float32)
-            sin = np.zeros_like(cos)
-            cos[:, :n_freqs] = (np.cos(ang) * win).astype(np.float32)
-            sin[:, :n_freqs] = (-np.sin(ang) * win).astype(np.float32)
-            self._consts[key] = (torch.from_numpy(cos).to(device),
-                                 torch.from_numpy(sin).to(device))
+            self._consts[key] = (torch.from_numpy(_hann_periodic(n_fft)).to(device),
+                                 torch.from_numpy(fft_twiddles(n_fft)).to(device))
         return self._consts[key]
 
-    def filterbank_t(self, sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney, device):
-        """(n_freqs_padded, n_mels) transposed filterbank, zero past the real
-        bins, kept on the device."""
+    def filterbank(self, sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney, device):
+        """``compact_filterbank``'s band and weights on the device, and n_bins."""
         key = ("fb", sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney, str(device))
         if key not in self._consts:
-            fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney)
-            fb_t = np.zeros((self.n_freqs_padded(n_fft), n_mels), np.float32)
-            fb_t[: fb.shape[1]] = fb.T
-            self._consts[key] = torch.from_numpy(fb_t).to(device)
+            band, weights, n_bins = compact_filterbank(sr, n_fft, n_mels, fmin, fmax, htk,
+                                                       norm_slaney)
+            self._consts[key] = (torch.from_numpy(band).to(device),
+                                 torch.from_numpy(weights).to(device), n_bins)
         return self._consts[key]
 
 
@@ -107,34 +123,32 @@ def kernel() -> _Kernel:
 def mel_power_cuda(wav: torch.Tensor, sr, n_fft=2048, hop_length=512, n_mels=128,
                    fmin=20, fmax=8300, htk=True, norm_slaney=False):
     """Power mel (n_mels, n_frames) from the CUDA kernel; ``wav`` must be a
-    1-D contiguous float32 CUDA tensor. Counts each launch in
-    ``mel_power_cuda.launches``."""
+    1-D contiguous float32 CUDA tensor and ``n_fft`` a power of two in
+    [256, 8192]. Counts each launch in ``mel_power_cuda.launches``."""
     if not (isinstance(wav, torch.Tensor) and wav.is_cuda):
         raise ValueError("mel_power_cuda takes a CUDA tensor; a CPU tensor takes "
                          "mel_power_reference")
     if wav.dtype != torch.float32 or wav.dim() != 1 or not wav.is_contiguous():
         raise ValueError(f"mel_power_cuda takes a 1-D contiguous float32 wave, got "
                          f"{wav.dtype} {tuple(wav.shape)} contiguous={wav.is_contiguous()}")
-    k = kernel()
     n = wav.shape[0]
-    pad = n_fft // 2
-    if n_fft % k.k_step or pad >= n or hop_length < 1:
-        raise ValueError(f"unsupported shape: n_fft={n_fft} (multiple of {k.k_step}), "
-                         f"len={n} (> n_fft/2), hop={hop_length}")
-    n_frames = 1 + n // hop_length  # centered: (n + 2*pad - n_fft) // hop + 1
+    if (not N_FFT_MIN <= n_fft <= N_FFT_MAX or n_fft & (n_fft - 1) or n_fft // 2 >= n
+            or hop_length < 1):
+        raise ValueError(f"unsupported shape: n_fft={n_fft} (a power of two in "
+                         f"[{N_FFT_MIN}, {N_FFT_MAX}]), len={n} (> n_fft/2), hop={hop_length}")
+    k = kernel()
+    n_frames = 1 + n // hop_length  # centered: (n + n_fft - n_fft) // hop + 1
     device = wav.device
-    cos, sin = k.bases(n_fft, device)
-    fb_t = k.filterbank_t(sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney, device)
-    n_pad = cos.shape[1]
-    partial = torch.empty((n_pad // k.freq_tile, n_frames, n_mels), dtype=torch.float32,
-                          device=device)
+    window, twiddles = k.tables(n_fft, device)
+    band, weights, n_bins = k.filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm_slaney,
+                                         device)
     out = torch.empty((n_mels, n_frames), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = k.lib.mel_power_launch(
-            wav.data_ptr(), n, pad, hop_length, n_frames, n_fft, cos.data_ptr(),
-            sin.data_ptr(), n_pad, fb_t.data_ptr(), n_mels, partial.data_ptr(),
-            out.data_ptr(), stream)
+            wav.data_ptr(), n, hop_length, n_frames, int(n_fft).bit_length() - 2,
+            window.data_ptr(), twiddles.data_ptr(), n_bins, band.data_ptr(),
+            weights.data_ptr(), n_mels, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("mel_power kernel launch failed: "
                            + k.lib.mel_power_error_string(err).decode())

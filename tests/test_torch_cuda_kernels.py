@@ -75,6 +75,46 @@ def test_mel_power_cuda_refuses_what_the_kernel_does_not_take(cuda):
         mel_power_cuda(wav[::2], SR)
     with pytest.raises(ValueError):
         mel_power_cuda(wav[:512], SR)  # shorter than the reflect pad
+    launches = mel_power_cuda.launches
+    for n_fft in (2016, 128, 16384):  # not a power of two; outside [256, 8192]
+        with pytest.raises(ValueError):
+            mel_power_cuda(wav, SR, n_fft=n_fft)
+    assert mel_power_cuda.launches == launches
+
+
+# (n_fft, hop, n, fmax): every FFT length's pass structure (odd and even
+# log2 of n_fft / 2), the 64 KB shared-memory transform at 8192, and the
+# Nyquist bin (fmax = sr / 2 uses bin n_fft / 2)
+FFT_CASES = [(256, 128, SR, 8300), (512, 700, SR, 8300), (1024, 256, SR, 8300),
+             (4096, 1500, 2 * SR, 8300), (8192, 2000, 2 * SR, 8300), (2048, 300, SR, SR / 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,n,fmax", FFT_CASES)
+def test_mel_power_cuda_fft_lengths_match_plain(cuda, n_fft, hop, n, fmax):
+    wav = _wave(n, cuda, seed=2)
+    kw = dict(n_fft=n_fft, hop_length=hop, fmax=fmax)
+    launches = mel_power_cuda.launches
+    out = mel_power_cuda(wav, SR, **kw)
+    assert mel_power_cuda.launches == launches + 1
+    ref = mel_power_reference(wav, SR, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (128, 1 + n // hop)
+    torch.testing.assert_close(out, ref, rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mel_power_cuda_is_bitwise_repeatable(cuda):
+    """One writer per output element and a fixed summation order: two
+    launches on the same wave agree bit for bit, one launch per call."""
+    wav = _wave(1 << 22, cuda, seed=3)
+    hop = (1 << 22) // 215
+    launches = mel_power_cuda.launches
+    a = mel_power_cuda(wav, SR, hop_length=hop)
+    b = mel_power_cuda(wav, SR, hop_length=hop)
+    torch.cuda.synchronize()
+    assert mel_power_cuda.launches == launches + 2
+    assert torch.equal(a, b)
 
 
 def _roll_events(B, E, T, start, seed=0, pad_from=None):
