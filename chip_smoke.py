@@ -23,9 +23,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               two launches on one wave bitwise equal; the bound counts the
               function's least work (a real FFT per frame).
               K1 (roll_rasterize) at the JAX kernel tests' shapes, the
-              pickler's (8, 4096, 300), a dense (8, 16384, 300) and a long
-              roll (2, 4096, 2000): bitwise (``torch.equal``); bytes-bound
-              (16 B per event in, 4 B per roll cell out).
+              pickler's (8, 4096, 300), a dense (8, 16384, 300), a long
+              roll (2, 4096, 2000), one pitch (8, 4096, 300; every note 60)
+              and midi_order (the first 8 corpus files' events as the
+              pickler pads them): bitwise (``torch.equal``) and two
+              launches on one input bitwise equal; bytes-bound (4 B per
+              note, 12 B more per slot up to each sample's trip count, 4 B
+              per roll cell out).
 4. serve    — launch counts set to 0; ``GenerationService(model="gandes")`` at
               full width on ``cuda`` with a warmup request, then an HTTP
               server on 127.0.0.1:0 answering POST /generate/gandes (n=4,
@@ -264,26 +268,50 @@ def phase_kernel():
     return rows
 
 
-def roll_bound_ms(B, E, T) -> tuple[float, str]:
-    """Least time for one rasterizer call: each event read once (4 int32),
-    each roll cell written once (f32), over the HBM rate; its few integer
-    operations per event and cell are far below the card's rate."""
-    return 1e3 * (16 * B * E + 4 * B * 2 * 128 * T) / HBM_BYTES_PER_S, "bytes"
+def roll_bound_ms(notes, T) -> tuple[float, str]:
+    """Least time for one rasterizer call on these events, over the HBM
+    rate: every note read once (4 B a slot; the notes set each sample's trip
+    count), the other three int32 fields of each slot up to the trip count
+    (the last valid index + 1; the pad tail past it needs no more), and each
+    roll cell written once (f32). Its few integer operations per event and
+    cell are far below the card's rate."""
+    import numpy as np
+
+    B, E = notes.shape
+    valid = notes >= 0
+    trips = np.where(valid.any(axis=1), E - np.argmax(valid[:, ::-1], axis=1), 0)
+    nbytes = 4 * B * E + 12 * int(trips.sum()) + 4 * B * 2 * 128 * T
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
 
 
-def _roll_events(B, E, T, start, seed, pad_from=None):
+def _roll_events(B, E, T, start, seed, pad_from=None, pitch=None):
     """tests/test_pallas_roll.py's generator (notes in [-1, 128), ons past
-    the crop on both sides, spans of -2..19 steps, velocities from -1)."""
+    the crop on both sides, spans of -2..19 steps, velocities from -1);
+    ``pitch`` sets every valid note to one pitch."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     notes = rng.randint(-1, 128, (B, E)).astype(np.int32)
+    if pitch is not None:
+        notes[notes >= 0] = pitch
     if pad_from is not None:
         notes[:, pad_from:] = -1
     ons = rng.randint(0, T + start + 10, (B, E)).astype(np.int32)
     offs = (ons + rng.randint(-2, 20, (B, E))).astype(np.int32)
     vels = rng.randint(-1, 127, (B, E)).astype(np.int32)
     return notes, ons, offs, vels
+
+
+def _midi_order_events(n_files=8, sample_size=300):
+    """The events of the first ``n_files`` files of phase ``pickle``'s
+    corpus (the same seed), padded as the pickler pads one launch's files:
+    MIDI order, onsets non-decreasing, per-file pad tails."""
+    from gandes_tpu_torch.data.datasets import _extract_file_events, pad_file_events
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, n_files=n_files)
+        files = sorted(glob.glob(os.path.join(tmp, "**", "*.mid*"), recursive=True))
+        return pad_file_events([_extract_file_events((f, sample_size, 50)) for f in files])
 
 
 def phase_kernel_roll():
@@ -297,7 +325,9 @@ def phase_kernel_roll():
                    np.array([[30, 20, 15, 12, 40, 8]], np.int32),
                    np.array([[100, 90, 0, -1, 70, 0]], np.int32))
     # (label, events, T, start, timed): tests/test_pallas_roll.py's shapes,
-    # then the pickler's, a dense one and a roll too long for one CTA per sample
+    # then the pickler's, a dense one, a roll of four column tiles, a file
+    # whose every note is one pitch (the skewed case) and the pickler's own
+    # events for one launch (MIDI order)
     cases = [("jax_3x32", _roll_events(3, 32, 50, 5, 0), 50, 5, False),
              ("jax_2x128", _roll_events(2, 128, 50, 100, 1), 50, 100, False),
              ("jax_1x16", _roll_events(1, 16, 96, 0, 2), 96, 0, False),
@@ -305,29 +335,38 @@ def phase_kernel_roll():
              ("pad_tail", _roll_events(4, 256, 50, 0, 3, pad_from=37), 50, 0, False),
              ("pickler", _roll_events(8, 4096, 300, 0, 4), 300, 0, True),
              ("dense", _roll_events(8, 16384, 300, 0, 5), 300, 0, True),
-             ("long_roll", _roll_events(2, 4096, 2000, 0, 6), 2000, 0, True)]
+             ("long_roll", _roll_events(2, 4096, 2000, 0, 6), 2000, 0, True),
+             ("one_pitch", _roll_events(8, 4096, 300, 0, 7, pitch=60), 300, 0, True),
+             ("midi_order", _midi_order_events(), 300, 0, True)]
     rows = []
     for label, events, T, start, timed in cases:
         ev = [torch.from_numpy(a).cuda() for a in events]
         B, E = ev[0].shape
         out = rasterize_cuda(*ev, num_steps=T, start=start)
+        again = rasterize_cuda(*ev, num_steps=T, start=start)
         ref = rasterize_events_reference(*ev, num_steps=T, start=start)
         torch.cuda.synchronize()
+        valid = events[0] >= 0
         row = {"phase": "kernel", "name": "roll_rasterize", "case": label, "B": B, "E": E,
                "T": T, "start": start, "equal": bool(torch.equal(out, ref)),
-               "max_abs_err": float((out - ref).abs().max()), "cells_set": int(ref.count_nonzero())}
+               "repeat_equal": bool(torch.equal(out, again)),
+               "max_abs_err": float((out - ref).abs().max()), "cells_set": int(ref.count_nonzero()),
+               "valid_events": int(valid.sum()),
+               "ons_sorted": bool(all((np.diff(o[v]) >= 0).all()
+                                      for o, v in zip(events[1], valid)))}
         if timed:
             row["ms"] = cuda_ms(lambda: rasterize_cuda(*ev, num_steps=T, start=start))
             row["device_ms"], row["traced_launches"] = device_ms(
                 lambda: rasterize_cuda(*ev, num_steps=T, start=start), "roll_rasterize_kernel")
             row["plain_ms"] = cuda_ms(lambda: rasterize_events_reference(
                 *ev, num_steps=T, start=start))
-            row["bound_ms"], row["bound_by"] = roll_bound_ms(B, E, T)
+            row["bound_ms"], row["bound_by"] = roll_bound_ms(events[0], T)
             row["library_ms"] = None
         emit(row)
         rows.append(row)
-        if not row["equal"]:
-            raise AssertionError(f"roll_rasterize {label}: kernel disagrees with its plain version")
+        if not (row["equal"] and row["repeat_equal"]):
+            raise AssertionError(f"roll_rasterize {label}: kernel disagrees with its plain version "
+                                 f"or with itself")
     return rows
 
 
@@ -733,7 +772,8 @@ def main() -> int:
     phase_serve_mmgan()
 
     r = next(row for row in rows if row["case"] == "serve_2^22")  # the serve clips' bucket
-    k = next(row for row in roll_rows if row["case"] == "pickler")
+    # the pickler's own events for one launch
+    k = next(row for row in roll_rows if row["case"] == "midi_order")
     kernels = [{"name": "mel_power", "route": "cuda",
                 "source": "gandes_tpu_torch/ops/csrc/mel_power.cu",
                 "replaces": "gandes_tpu/ops/pallas_mel.py:101",

@@ -35,6 +35,7 @@ import traceback
 
 import numpy as np
 
+from gandes_tpu_torch.des import native
 from gandes_tpu_torch.des.engine import Sim
 from gandes_tpu_torch.music.generators import process_adjsim_log_v2
 
@@ -146,6 +147,10 @@ def matrix_to_midi(
         raise NotImplementedError(
             "matrix_to_midi(parallel>=1) needs music/native_decode.py and the batch "
             "paths, which are not ported to gandes_tpu_torch yet; pass parallel=None")
+
+    # load (on first use, build with g++) the native DES core before any
+    # sim's deadline is taken: a one-time build is not sim wall time
+    native.get_lib()
 
     midi_rolls = []
     failed_simulations = 0

@@ -169,6 +169,19 @@ def _extract_file_events(args):
     return notes, ons, offs, vels, int(total), beats.astype(np.float32)
 
 
+def pad_file_events(grp):
+    """(notes, ons, offs, vels) int32 (len(grp), E) arrays of the files'
+    events, E the densest file's count (at least 1), other slots padded
+    with ``note = -1``."""
+    E = max(1, max(len(e[0]) for e in grp))
+    notes = np.full((len(grp), E), -1, np.int32)
+    ons, offs, vels = (np.zeros((len(grp), E), np.int32) for _ in range(3))
+    for j, (n_, o_, f_, v_, *_rest) in enumerate(grp):
+        k = len(n_)
+        notes[j, :k], ons[j, :k], offs[j, :k], vels[j, :k] = n_, o_, f_, v_
+    return notes, ons, offs, vels
+
+
 def _rasterize_file_batch(extracted, sample_size, chunk=8, device="cuda"):
     """Batched rasterization of per-file event arrays on ``device``: one
     ``rasterize_events`` call per ``chunk`` files, padded (``note = -1``) to
@@ -179,19 +192,7 @@ def _rasterize_file_batch(extracted, sample_size, chunk=8, device="cuda"):
     from gandes_tpu_torch.music.piano_roll import rasterize_events
 
     for i in range(0, len(extracted), chunk):
-        grp = extracted[i:i + chunk]
-        E = max(1, max(len(e[0]) for e in grp))
-        notes = np.full((len(grp), E), -1, np.int32)
-        ons = np.zeros((len(grp), E), np.int32)
-        offs = np.zeros((len(grp), E), np.int32)
-        vels = np.zeros((len(grp), E), np.int32)
-        for j, (n_, o_, f_, v_, _t, _b) in enumerate(grp):
-            k = len(n_)
-            notes[j, :k] = n_
-            ons[j, :k] = o_
-            offs[j, :k] = f_
-            vels[j, :k] = v_
-        events = [torch.from_numpy(a).to(device) for a in (notes, ons, offs, vels)]
+        events = [torch.from_numpy(a).to(device) for a in pad_file_events(extracted[i:i + chunk])]
         out = rasterize_events(*events, num_steps=sample_size, start=0).cpu().numpy()
         yield from out
 

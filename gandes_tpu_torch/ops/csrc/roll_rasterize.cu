@@ -10,166 +10,200 @@
 // walk stops after the sample's last valid event (its trip count), so a
 // shared pad tail is never walked.
 //
-// What bounds it on this card: bytes. It reads 16 B per event and writes
-// 4 B per roll cell and does a few integer operations per event and cell;
-// at the pickler's shape (B 8, E 4096, T 300) that is 2.98 MB, 0.9 us at
-// 3.35 TB/s. The walk itself is sequential per (sample, pitch), so the
-// design spreads the work over CTAs and keeps every write in shared memory:
+// What bounds it on this card: bytes. It reads 16 B per event (the notes of
+// a pad tail only) and writes 4 B per roll cell, with a few integer
+// operations per event and cell; at the pickler's shape (B 8, E 4096,
+// T 300) that is 2.98 MB, 0.9 us at 3.35 TB/s. What the design does:
 //
-// * grid = (sample, pitch tile of P rows). A CTA owns P pitches x 2 channels
-//   x T columns in dynamic shared memory. One whole sample (2 x 128 x T f32)
-//   does not fit: at T = 300 it is 307,200 B against a block's 232,448 B.
-//   The wrapper's P = 16 gives 38,400 B at T = 300; the launcher halves P
-//   until the block fits (P = 8 at T = 2000) and raises the dynamic shared
-//   memory limit where it passes 48 KB. At B = 8 and P = 16 a launch has 64
-//   CTAs instead of 8.
-// * Order without per-event barriers: each thread owns the columns
-//   t = tid + k * blockDim for all of the CTA's rows, and every thread walks
-//   the same event list in order, writing only its own columns. Each cell
-//   has exactly one writer, which sees the events in order.
-// * Staging: events are copied from device memory into shared memory in
-//   chunks of CHUNK; while staging, the CTA keeps only the events whose note
-//   lies in its pitch tile (an ordered compaction: warp ballots and a scan
-//   over the warps' counts), so each CTA walks about P/128 of the events.
-//   The only barriers are around each staging round. Any E works.
-// * The trip count (last valid index + 1) is found by scanning the sample's
-//   notes backwards from E, one block-wide step at a time, until a step holds
-//   a valid note: the pad tail is read once and never walked.
-// * The roll tile is zeroed first and written out once at the end, two
-//   contiguous P x T spans per CTA, neighbouring threads on neighbouring
-//   addresses.
+// * Order is a maximum, not a walk. "The last writer wins" is "the highest
+//   event index that covers the cell wins". A CTA keeps, per cell of its
+//   tile, the highest covering index + 1 in shared memory and folds events
+//   in with atomicMax, in any order and from any thread; a maximum does not
+//   depend on the order, so every launch gives the same bits. No thread
+//   walks a pitch row alone: a skewed file (one pitch) spreads over all the
+//   CTA's lanes, merged by the larger index.
+// * Fill the card. The grid is (sample, 4-pitch tile, 512-column tile):
+//   32 x ceil(T / 512) CTAs per sample, 256 at the pickler's B = 8, two on
+//   an SM. Any T >= 1: a tile's 16 KB index array and 16 KB of event
+//   queues are static shared memory.
+// * Loads in flight, full warps. A thread takes 16 events of each
+//   4096-event chunk and issues their 16 coalesced note loads together
+//   (pickler rows hold any E, so a row is not 16-byte aligned; 4-byte loads
+//   with neighbouring threads on neighbouring events move the same 32-byte
+//   sectors). A warp ballots which of its 512 events lie in the tile and
+//   queues them in shared memory, in order of a prefix count; its lanes then
+//   take the queue four events each, with those events' on / off / vel loads
+//   in flight together, and fold them. A lane folds whole events, so a
+//   shared-memory atomic has as many active lanes as the warp has events.
+// * The trip count. Chunks are walked from the last one down; chunks whose
+//   notes are all < 0 (the pad tail) are skipped after their notes are read,
+//   one block-wide vote each, and no other field of them is read. Within the
+//   first chunk that holds a valid note, the slots past it are pad (note < 0)
+//   and are never queued.
+// * One pass out. After the fold (one barrier), warp w writes the tile's
+//   rows w, w + 8, ... ([channel][row]) with lanes on neighbouring columns:
+//   zero where no event won, else the winner's velocity or off - on, loaded
+//   by index (the row's loads in flight together). Every output cell is
+//   written once, by one thread; no zero-fill or copy of the roll.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int CHUNK = 512;               // events staged per chunk (8 KB)
-constexpr int MAX_THREADS = 1024;
-constexpr int MAX_PITCH_TILE = 16;
-constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory a block can use
-constexpr int SMEM_DEFAULT = 48 * 1024;  // usable without cudaFuncSetAttribute
+constexpr int THREADS = 256;
+constexpr int UNROLL = 16;                       // events per thread per chunk
+constexpr int CHUNK = THREADS * UNROLL;          // 4096 events
+constexpr int PITCH_TILE = 4;                    // pitch rows per CTA
+constexpr int N_PITCH_TILES = 128 / PITCH_TILE;  // 32
+constexpr int ROW_BITS = 2;                      // a queued event: chunk offset << 2 | row
+static_assert(PITCH_TILE <= 1 << ROW_BITS, "a queued event keeps its row in ROW_BITS");
+constexpr int COL_TILE = 512;                    // roll columns per CTA
+constexpr int CELLS = 2 * PITCH_TILE * COL_TILE;  // [channel][row][column - t0]
+constexpr int WARPS = THREADS / 32;
+constexpr int QUEUE = CHUNK / WARPS;  // a warp's events of one chunk, at most
+constexpr int QUEUE_UNROLL = 4;       // queued events a lane loads together
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(MAX_THREADS)
-roll_rasterize_kernel(const int* __restrict__ notes, const int* __restrict__ ons,
-                      const int* __restrict__ offs, const int* __restrict__ vels, int E,
-                      int T, int start, int P, float* __restrict__ out) {
-  extern __shared__ int4 smem[];
-  int4* ev = smem;                                      // [CHUNK]
-  float* roll = reinterpret_cast<float*>(smem + CHUNK);  // [2][P][T]
-  __shared__ int warp_count[MAX_THREADS / 32];
-  __shared__ int s_trip;
-
-  const int b = blockIdx.x;
-  const int p0 = blockIdx.y * P;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = nt >> 5;
-  const size_t row = static_cast<size_t>(b) * E;
-
-  for (int i = tid; i < 2 * P * T; i += nt) roll[i] = 0.f;
-  if (tid == 0) s_trip = 0;
-  __syncthreads();
-
-  // trip count: the last valid event's index + 1, scanning backwards
-  for (int hi = E; hi > 0; hi -= nt) {
-    const int i = hi - 1 - tid;
-    const int valid = i >= 0 && notes[row + i] >= 0;
-    if (__syncthreads_or(valid)) {
-      if (valid) atomicMax(&s_trip, i + 1);
-      break;
-    }
-  }
-  __syncthreads();
-  const int trip = s_trip;
-
-  float* vel_roll = roll;
-  float* dur_roll = roll + P * T;
-  for (int c0 = 0; c0 < trip; c0 += CHUNK) {
-    const int n = min(CHUNK, trip - c0);
-    // stage this chunk's events of pitches [p0, p0 + P), in order
-    int kept = 0;
-    for (int r0 = 0; r0 < n; r0 += nt) {
-      const int i = r0 + tid;
-      int4 v = make_int4(-1, 0, 0, 0);
-      bool keep = false;
-      if (i < n) {
-        const size_t g = row + c0 + i;
-        v = make_int4(notes[g], ons[g] - start, offs[g] - start, vels[g]);
-        keep = static_cast<unsigned>(v.x - p0) < static_cast<unsigned>(P);
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, keep);
-      if (lane == 0) warp_count[warp] = __popc(mask);
-      __syncthreads();
-      int before = 0, total = 0;
-      for (int w = 0; w < n_warps; ++w) {
-        const int c = warp_count[w];
-        before += w < warp ? c : 0;
-        total += c;
-      }
-      if (keep) ev[kept + before + __popc(mask & ((1u << lane) - 1u))] = v;
-      kept += total;
-      __syncthreads();  // ev written; warp_count free for the next round
-    }
-
-    for (int e = 0; e < kept; ++e) {
-      const int4 v = ev[e];
-      const int r = (v.x - p0) * T;
-      const bool vel_write = v.w >= 0 && v.y >= 0 && v.y < T;
-      const float dur = static_cast<float>(v.z - v.y);
-      for (int t = tid; t < T; t += nt) {
-        if (vel_write && t == v.y) vel_roll[r + t] = static_cast<float>(v.w);
-        if (t >= v.y && t < v.z) dur_roll[r + t] = dur;
-      }
-    }
-    __syncthreads();  // the walk is done before ev is restaged
-  }
-
-  __syncthreads();
-  for (int c = 0; c < 2; ++c) {
-    float* dst = out + ((static_cast<size_t>(b) * 2 + c) * 128 + p0) * T;
-    const float* src = roll + c * P * T;
-    for (int i = tid; i < P * T; i += nt) dst[i] = src[i];
-  }
+// Fold one event (index + 1 = e1) into the tile's rows from p0 and columns
+// [t0, t0 + tc): its velocity cell and its duration span.
+__device__ __forceinline__ void fold(int* win, int e1, int r, long long on, long long off,
+                                     int vel, int t0, int tc) {
+  if (vel >= 0 && on >= t0 && on < t0 + tc)
+    atomicMax(&win[r * COL_TILE + static_cast<int>(on - t0)], e1);
+  const long long lo = on > t0 ? on : t0;
+  const long long hi = off < t0 + tc ? off : t0 + tc;
+  if (lo >= hi) return;  // now t0 <= lo < hi <= t0 + tc
+  int* row = win + (PITCH_TILE + r) * COL_TILE - t0;
+  for (int t = static_cast<int>(lo); t < static_cast<int>(hi); ++t) atomicMax(&row[t], e1);
 }
 
-size_t smem_bytes(int P, int T) {
-  return sizeof(int4) * CHUNK + sizeof(float) * 2 * static_cast<size_t>(P) * T;
+__global__ void __launch_bounds__(THREADS)
+roll_rasterize_kernel(const int* __restrict__ notes, const int* __restrict__ ons,
+                      const int* __restrict__ offs, const int* __restrict__ vels, int E,
+                      int T, int start, int n_col_tiles, float* __restrict__ out) {
+  __shared__ __align__(16) int win[CELLS];  // highest covering event index + 1; 0: none
+  __shared__ int queue[WARPS][QUEUE];         // each warp's queued events of one chunk
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int ct = blockIdx.x % n_col_tiles;
+  const int pt = (blockIdx.x / n_col_tiles) % N_PITCH_TILES;
+  const int b = blockIdx.x / (n_col_tiles * N_PITCH_TILES);
+  const int p0 = pt * PITCH_TILE;
+  const int t0 = ct * COL_TILE;
+  const int tc = min(COL_TILE, T - t0);
+  const size_t row = static_cast<size_t>(b) * E;
+  notes += row;
+  ons += row;
+  offs += row;
+  vels += row;
+
+  for (int i = tid; i < CELLS / 4; i += THREADS)
+    reinterpret_cast<int4*>(win)[i] = make_int4(0, 0, 0, 0);
+
+  // fold: chunks from the last down; the pad tail's chunks are skipped
+  const int n_chunks = E / CHUNK + (E % CHUNK != 0);
+  bool started = false;
+  for (int k = n_chunks - 1; k >= 0; --k) {
+    const long long c0 = static_cast<long long>(k) * CHUNK;
+    int note[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = c0 + u * THREADS + tid;
+      note[u] = i < E ? notes[i] : -1;
+    }
+    if (!started) {  // uniform: every thread sees the same vote
+      bool valid = false;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) valid |= note[u] >= 0;
+      if (!__syncthreads_or(valid)) continue;  // also orders the zero-fill first
+      started = true;
+    }
+    // queue this warp's events of the tile, in order, then fold them
+    int* q = queue[tid / 32];
+    int n = 0;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int r = note[u] - p0;
+      const bool keep = static_cast<unsigned>(r) < static_cast<unsigned>(PITCH_TILE);
+      const unsigned m = __ballot_sync(FULL, keep);
+      if (keep) q[n + __popc(m & ((1u << lane) - 1u))] = (u * THREADS + tid) << ROW_BITS | r;
+      n += __popc(m);
+    }
+    __syncwarp();
+    for (int j0 = 0; j0 < n; j0 += 32 * QUEUE_UNROLL) {
+      int x[QUEUE_UNROLL], on[QUEUE_UNROLL], off[QUEUE_UNROLL], vel[QUEUE_UNROLL];
+#pragma unroll
+      for (int a = 0; a < QUEUE_UNROLL; ++a) {
+        const int j = j0 + 32 * a + lane;
+        x[a] = j < n ? q[j] : -1;
+      }
+#pragma unroll
+      for (int a = 0; a < QUEUE_UNROLL; ++a) {
+        if (x[a] >= 0) {
+          const long long i = c0 + (x[a] >> ROW_BITS);
+          on[a] = ons[i];
+          off[a] = offs[i];
+          vel[a] = vels[i];
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < QUEUE_UNROLL; ++a) {
+        if (x[a] >= 0)
+          fold(win, static_cast<int>(c0 + (x[a] >> ROW_BITS)) + 1,
+               x[a] & ((1 << ROW_BITS) - 1), static_cast<long long>(on[a]) - start,
+               static_cast<long long>(off[a]) - start, vel[a], t0, tc);
+      }
+    }
+    __syncwarp();  // the queue is read before the next chunk refills it
+  }
+  __syncthreads();
+
+  // the tile out, zeros included: warp w writes rows w, w + 8, ...
+  // ([channel][row]), lanes on neighbouring columns; each cell takes its
+  // winner's value, the row's loads in flight together
+  float* dst = out + static_cast<size_t>(b) * 2 * 128 * T + t0;
+  for (int cr = tid / 32; cr < 2 * PITCH_TILE; cr += THREADS / 32) {
+    const int* w = win + cr * COL_TILE;
+    int e1[COL_TILE / 32];
+#pragma unroll
+    for (int j = 0; j < COL_TILE / 32; ++j) {
+      const int t = lane + 32 * j;
+      e1[j] = t < tc ? w[t] : 0;
+    }
+    float v[COL_TILE / 32];
+#pragma unroll
+    for (int j = 0; j < COL_TILE / 32; ++j) {
+      const int e = e1[j] - 1;
+      v[j] = e1[j] == 0 ? 0.f
+             : cr < PITCH_TILE ? static_cast<float>(vels[e])
+                               : static_cast<float>(static_cast<long long>(offs[e]) - ons[e]);
+    }
+    float* d = dst + (static_cast<size_t>(cr / PITCH_TILE) * 128 + p0 + cr % PITCH_TILE) * T;
+#pragma unroll
+    for (int j = 0; j < COL_TILE / 32; ++j) {
+      const int t = lane + 32 * j;
+      if (t < tc) d[t] = v[j];
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest pitch tile P (a power of two dividing 128, at most 16) whose
-// block fits in shared memory at roll length T; 0 if none does.
-int roll_rasterize_pitch_tile(int T) {
-  int P = MAX_PITCH_TILE;
-  while (P > 1 && smem_bytes(P, T) > static_cast<size_t>(SMEM_LIMIT)) P /= 2;
-  return smem_bytes(P, T) <= static_cast<size_t>(SMEM_LIMIT) ? P : 0;
-}
-
 // notes/ons/offs/vels: contiguous int32 (B, E); out: float32 (B, 2, 128, T),
-// fully written. T >= 1 and roll_rasterize_pitch_tile(T) > 0 (the wrapper
-// checks both). Returns a cudaError_t.
+// fully written. Any T >= 1 and E >= 0 (E < 2^31). Returns a cudaError_t.
 int roll_rasterize_launch(const int* notes, const int* ons, const int* offs, const int* vels,
                           int B, int E, int T, int start, float* out, void* stream) {
+  if (B < 0 || E < 0 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
-  const int P = roll_rasterize_pitch_tile(T);
-  if (P == 0 || T < 1 || E < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(P, T);
-  if (smem > static_cast<size_t>(SMEM_DEFAULT)) {
-    cudaError_t err = cudaFuncSetAttribute(roll_rasterize_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int threads = ((T + 31) / 32) * 32;
-  if (threads > MAX_THREADS) threads = MAX_THREADS;
-  const dim3 grid(B, 128 / P);
-  roll_rasterize_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      notes, ons, offs, vels, E, T, start, P, out);
+  const int n_col_tiles = (T + COL_TILE - 1) / COL_TILE;
+  const long long blocks = static_cast<long long>(B) * N_PITCH_TILES * n_col_tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  roll_rasterize_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(notes, ons, offs, vels, E, T,
+                                                               start, n_col_tiles, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,8 +83,7 @@ class _Kernel:
         self.lib.roll_rasterize_launch.restype = i
         self.lib.roll_rasterize_error_string.argtypes = [i]
         self.lib.roll_rasterize_error_string.restype = ctypes.c_char_p
-        self.lib.roll_rasterize_pitch_tile.argtypes = [i]
-        self.lib.roll_rasterize_pitch_tile.restype = i
+        self.launch = self.lib.roll_rasterize_launch
 
 
 _KERNEL: _Kernel | None = None
@@ -94,19 +93,20 @@ _KERNEL_LOCK = threading.Lock()
 def kernel() -> _Kernel:
     """The built kernel; the first call compiles ``csrc/roll_rasterize.cu``."""
     global _KERNEL
-    with _KERNEL_LOCK:
-        if _KERNEL is None:
-            _KERNEL = _Kernel()
-        return _KERNEL
+    if _KERNEL is None:
+        with _KERNEL_LOCK:
+            if _KERNEL is None:
+                _KERNEL = _Kernel()
+    return _KERNEL
 
 
 _INT32_MAX = 2**31 - 1
 
 
 def rasterize_cuda(notes, ons, offs, vels, *, num_steps: int, start: int = 0):
-    """(B, 2, 128, T) rolls from the CUDA kernel; the event arrays must be
-    contiguous int32 (B, E) CUDA tensors on one device. Counts each launch in
-    ``rasterize_cuda.launches``."""
+    """(B, 2, 128, T) rolls from the CUDA kernel, any T >= 1; the event
+    arrays must be contiguous int32 (B, E) CUDA tensors on one device.
+    Counts each launch in ``rasterize_cuda.launches``."""
     arrays = (notes, ons, offs, vels)
     if not all(isinstance(a, torch.Tensor) and a.is_cuda for a in arrays):
         raise ValueError("rasterize_cuda takes CUDA tensors; CPU tensors take "
@@ -120,22 +120,25 @@ def rasterize_cuda(notes, ons, offs, vels, *, num_steps: int, start: int = 0):
                              f"contiguous={a.is_contiguous()}")
     B, E = shape
     T = int(num_steps)
-    k = kernel()
-    if T < 1 or k.lib.roll_rasterize_pitch_tile(T) == 0:
-        raise ValueError(f"num_steps={T} does not fit the kernel's shared-memory tile")
-    if B > _INT32_MAX or E > _INT32_MAX or abs(int(start)) > _INT32_MAX:
-        raise ValueError(f"B={B}, E={E} and start={start} must fit in int32")
+    if T < 1:
+        raise ValueError(f"num_steps={T}: the roll needs at least one step")
+    if B > _INT32_MAX or E > _INT32_MAX or T > _INT32_MAX or abs(int(start)) > _INT32_MAX:
+        raise ValueError(f"B={B}, E={E}, T={T} and start={start} must fit in int32")
+    launch = kernel().launch
     out = torch.empty((B, 2, 128, T), dtype=torch.float32, device=device)
     if B == 0:
         return out
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = k.lib.roll_rasterize_launch(notes.data_ptr(), ons.data_ptr(), offs.data_ptr(),
-                                          vels.data_ptr(), B, E, T, int(start),
-                                          out.data_ptr(), stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = (notes.data_ptr(), ons.data_ptr(), offs.data_ptr(), vels.data_ptr(), B, E, T,
+            int(start), out.data_ptr(), stream)
+    if device.index == torch.cuda.current_device():
+        err = launch(*args)
+    else:  # the launch goes to the calling thread's current device
+        with torch.cuda.device(device):
+            err = launch(*args)
     if err != 0:
         raise RuntimeError("roll_rasterize kernel launch failed: "
-                           + k.lib.roll_rasterize_error_string(err).decode())
+                           + kernel().lib.roll_rasterize_error_string(err).decode())
     rasterize_cuda.launches += 1
     return out
 

@@ -117,15 +117,21 @@ def test_mel_power_cuda_is_bitwise_repeatable(cuda):
     assert torch.equal(a, b)
 
 
-def _roll_events(B, E, T, start, seed=0, pad_from=None):
+def _roll_events(B, E, T, start, seed=0, pad_from=None, pitch=None, sorted_ons=False):
     """tests/test_pallas_roll.py's generator (notes in [-1, 128), ons past
     the crop on both sides, spans of -2..19 steps, velocities from -1);
-    ``pad_from`` pads every slot from that index on (a shared pad tail)."""
+    ``pad_from`` pads every slot from that index on (a shared pad tail),
+    ``pitch`` sets every valid note to one pitch (a skewed file), and
+    ``sorted_ons`` sorts each row's onsets (MIDI order)."""
     rng = np.random.RandomState(seed)
     notes = rng.randint(-1, 128, (B, E)).astype(np.int32)
+    if pitch is not None:
+        notes[notes >= 0] = pitch
     if pad_from is not None:
         notes[:, pad_from:] = -1
     ons = rng.randint(0, T + start + 10, (B, E)).astype(np.int32)
+    if sorted_ons:
+        ons.sort(axis=1)
     offs = (ons + rng.randint(-2, 20, (B, E))).astype(np.int32)
     vels = rng.randint(-1, 127, (B, E)).astype(np.int32)
     return notes, ons, offs, vels
@@ -137,8 +143,9 @@ LAST_WRITER = (np.array([[60, 60, 60, 60, 64, 64]], np.int32),
                np.array([[100, 90, 0, -1, 70, 0]], np.int32))
 
 # (label, events, T, start): the JAX kernel tests' shapes, the pickler's
-# (8 files, E 4096, T 300), a dense one and a long roll that one CTA per
-# sample could not hold in shared memory
+# (8 files, E 4096, T 300), a dense one, a long roll of four column tiles,
+# a file whose every note is one pitch, and onsets in MIDI order with
+# per-file pad tails as the pickler pads them
 ROLL_CASES = [
     ("jax_3x32", lambda: _roll_events(3, 32, 50, 5), 50, 5),
     ("jax_2x128", lambda: _roll_events(2, 128, 50, 100, seed=1), 50, 100),
@@ -150,6 +157,9 @@ ROLL_CASES = [
     ("pickler", lambda: _roll_events(8, 4096, 300, 0, seed=4), 300, 0),
     ("dense", lambda: _roll_events(8, 16384, 300, 0, seed=5), 300, 0),
     ("long_roll", lambda: _roll_events(2, 4096, 2000, 0, seed=6), 2000, 0),
+    ("one_pitch", lambda: _roll_events(8, 4096, 300, 0, seed=7, pitch=60), 300, 0),
+    ("midi_order", lambda: _roll_events(8, 3100, 300, 0, seed=8, pad_from=2900,
+                                        sorted_ons=True), 300, 0),
 ]
 
 
@@ -175,5 +185,20 @@ def test_rasterize_cuda_refuses_what_the_kernel_does_not_take(cuda):
         rasterize_cuda(notes[:, ::2], ons[:, ::2], offs[:, ::2], vels[:, ::2], num_steps=50)
     with pytest.raises(ValueError):
         rasterize_cuda(notes, ons, offs, vels[:1], num_steps=50)
+    launches = rasterize_cuda.launches
     with pytest.raises(ValueError):
-        rasterize_cuda(notes, ons, offs, vels, num_steps=1 << 20)  # no tile fits
+        rasterize_cuda(notes, ons, offs, vels, num_steps=0)  # any T >= 1 is taken
+    assert rasterize_cuda.launches == launches
+
+
+@pytest.mark.cuda
+def test_rasterize_cuda_is_bitwise_repeatable(cuda):
+    """The per-cell maximum does not depend on the order in which threads
+    fold events in: two launches agree bit for bit, one launch per call."""
+    events = [torch.from_numpy(a).to(cuda) for a in _roll_events(8, 4096, 300, 0, seed=9)]
+    launches = rasterize_cuda.launches
+    a = rasterize_cuda(*events, num_steps=300)
+    b = rasterize_cuda(*events, num_steps=300)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.launches == launches + 2
+    assert torch.equal(a, b)

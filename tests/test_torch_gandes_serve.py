@@ -31,10 +31,12 @@ import torch
 from scipy.io import wavfile
 
 from gandes_tpu.bridge.gandes_decode import matrix_to_wav as jax_matrix_to_wav
+from gandes_tpu.des import native as jax_native
 from gandes_tpu.models.gan_des import DCGANGenerator as JaxDCGAN
 from gandes_tpu_torch.bridge.gandes_decode import matrix_to_wav
 from gandes_tpu_torch.music.mel import melspectrogram_db_tensor
 from gandes_tpu_torch.music.synth import _pow2
+from gandes_tpu_torch.des import native
 from gandes_tpu_torch.serve import GenerationService, make_http_server
 
 DB_ATOL = 0.05
@@ -50,6 +52,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _des_libs_loaded():
+    """Both packages' native DES cores are built and loaded before any sim
+    runs under a wall budget: a cold g++ build (~3 s) must not count as a
+    sim's time."""
+    assert jax_native.get_lib() is not None
+    assert native.get_lib() is not None
 
 
 @pytest.fixture(scope="module")

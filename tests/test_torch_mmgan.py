@@ -14,6 +14,7 @@
 """
 
 import os
+import time
 from unittest import mock
 
 import jax
@@ -23,10 +24,12 @@ import pytest
 import torch
 
 from gandes_tpu.bridge.mmgan_decode import matrix_to_midi as jax_matrix_to_midi
+from gandes_tpu.des import native as jax_native
 from gandes_tpu.models.mmgan import DiscriminatorCNN as JaxDiscriminatorCNN
 from gandes_tpu.train import mmgan_loop as jax_loop
 from gandes_tpu.train.torch_import import export_mmgan_torch_checkpoint
 from gandes_tpu_torch.bridge.mmgan_decode import matrix_to_midi
+from gandes_tpu_torch.des import native
 from gandes_tpu_torch.models.composite import MultiModalGAN
 from gandes_tpu_torch.models.mmgan import DiscriminatorCNN
 from gandes_tpu_torch.train.convert import mmgan_state_dict_from_flax
@@ -42,6 +45,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _des_libs_loaded():
+    """Both packages' native DES cores are built and loaded before any sim
+    runs under a wall budget: a cold g++ build (~3 s) must not count as a
+    sim's time."""
+    assert jax_native.get_lib() is not None
+    assert native.get_lib() is not None
 
 
 def _perturb_stats(tree, rng):
@@ -166,18 +178,24 @@ def test_seeded_init_distributions():
     assert isinstance(model.discriminator, DiscriminatorCNN)
 
 
-def test_matrix_to_midi_matches_jax(jax_state, torch_model, tmp_path):
-    """Generator outputs decoded by both packages after the same global
-    seed: equal rolls and equal generation.mid bytes."""
+def _generator_outputs(jax_state):
+    """Two samples of the JAX eval forward, with the largest sim wall budget
+    (``gen2[5] = 1``), so the sims end by customer count."""
     cfg, state = jax_state
     rng = np.random.RandomState(3)
     n1, n2 = rng.randn(2, 50).astype(np.float32), rng.randn(2, 50).astype(np.float32)
     beats = np.zeros((2, 50), np.float32)
     g1, g2 = jax_loop._eval_forward(cfg)(state.g_params, state.g_stats, n1, n2, beats,
                                          jax.random.key(0))
-    g1 = np.asarray(g1)[:, None]
     g2 = np.array(g2)
-    g2[:, 5] = 1.0  # the largest wall budget: the sims end by customer count
+    g2[:, 5] = 1.0
+    return np.asarray(g1)[:, None], g2
+
+
+def test_matrix_to_midi_matches_jax(jax_state, torch_model, tmp_path):
+    """Generator outputs decoded by both packages after the same global
+    seed: equal rolls and equal generation.mid bytes."""
+    g1, g2 = _generator_outputs(jax_state)
     runs = {}
     for name, fn in (("jax", jax_matrix_to_midi), ("torch", matrix_to_midi)):
         out_dir = str(tmp_path / name)
@@ -197,6 +215,38 @@ def test_matrix_to_midi_matches_jax(jax_state, torch_model, tmp_path):
     assert mid[:4] == b"MThd" and mid == ref_mid
     assert all(r.any() for r in rolls)  # the decoded songs reach the crop
     np.testing.assert_array_equal(rng_after, ref_rng)
+
+
+def test_matrix_to_midi_cold_build_is_not_sim_time(jax_state, tmp_path, monkeypatch):
+    """A DES library built on first use (here a build that sleeps past the
+    watchdog) is loaded before the first sim's deadline is taken: no sample
+    fails, and the rolls equal a warm run's."""
+    g1, g2 = _generator_outputs(jax_state)
+    watchdog, build_s = 1.0, 1.5
+
+    def decode(name):
+        np.random.seed(7)
+        return matrix_to_midi(g1, g2, adj_size=(64, 64), instrument=0, start=100, end=150,
+                              generate=True, log_path=str(tmp_path / f"{name}_logs") + "/",
+                              out_dir=str(tmp_path / name), watchdog=watchdog)
+
+    warm_rolls, warm_failed = decode("warm")
+    real_build, builds = native.build_native_lib, []
+
+    def slow_build(*args, **kw):
+        builds.append(args)
+        time.sleep(build_s)
+        return real_build(*args, **kw)
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_failed", False)
+    monkeypatch.setattr(native, "build_native_lib", slow_build)
+    rolls, failed = decode("cold")
+    assert len(builds) == 1 and native._lib is not None
+    assert failed == warm_failed == 0
+    for a, b in zip(rolls, warm_rolls, strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert all(r.any() for r in rolls)
 
 
 def test_matrix_to_midi_parallel_mode_is_not_ported():

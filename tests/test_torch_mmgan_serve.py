@@ -24,9 +24,11 @@ import pytest
 import torch
 
 from gandes_tpu.bridge.mmgan_decode import matrix_to_midi as jax_matrix_to_midi
+from gandes_tpu.des import native as jax_native
 from gandes_tpu.train.loading import load_mmgan_state as jax_load_mmgan_state
 from gandes_tpu.train.mmgan_loop import MMGANConfig as JaxMMGANConfig
 from gandes_tpu.train.torch_import import export_mmgan_torch_checkpoint
+from gandes_tpu_torch.des import native
 from gandes_tpu_torch.serve import GenerationService, make_http_server, run_server
 from gandes_tpu_torch.train.mmgan_loop import eval_forward
 
@@ -37,6 +39,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _des_libs_loaded():
+    """Both packages' native DES cores are built and loaded before any sim
+    runs under a wall budget: a cold g++ build (~3 s) must not count as a
+    sim's time."""
+    assert jax_native.get_lib() is not None
+    assert native.get_lib() is not None
 
 
 @pytest.fixture(scope="module")

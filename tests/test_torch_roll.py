@@ -6,9 +6,16 @@ takes for CPU tensors) is held bitwise against the JAX package's XLA path
 mode: the values are small integers in float32, so there is no tolerance.
 The pickler's windows are held bitwise against the JAX package's, window by
 window, on the host path and on the device-rasterize path.
+
+``_k1_model`` is a numpy model of the CUDA kernel's steps (tiles, the chunk
+walk that skips the pad tail, per-thread folds of the highest covering event
+index merged by the larger index, the winner's resolve), held bitwise
+against ``_rasterize_math`` and the Pallas kernel in interpret mode.
 """
 
+import os
 import pickle
+import re
 
 import numpy as np
 import pytest
@@ -22,6 +29,7 @@ from gandes_tpu.ops.pallas_roll import rasterize_events_pallas
 from gandes_tpu_torch.data.datasets import build_window_pickle
 from gandes_tpu_torch.music.midi import MidiFile
 from gandes_tpu_torch.music.piano_roll import midi_to_events, rasterize_events
+from gandes_tpu_torch.ops import roll_rasterize
 from gandes_tpu_torch.ops.roll_rasterize import rasterize_cuda, rasterize_events_reference
 
 
@@ -99,6 +107,131 @@ def test_rasterize_reference_matches_jax(label, make, T, start, pallas):
 def test_rasterize_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rasterize_cuda(*_torch(LAST_WRITER), num_steps=50)
+
+
+def _cu_constant(name):
+    """An ``int`` constant of ``csrc/roll_rasterize.cu``, so the model and the
+    kernel share their tile and chunk sizes."""
+    path = os.path.join(os.path.dirname(roll_rasterize.__file__), "csrc", "roll_rasterize.cu")
+    with open(path) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+THREADS, UNROLL = _cu_constant("THREADS"), _cu_constant("UNROLL")
+PITCH_TILE, COL_TILE = _cu_constant("PITCH_TILE"), _cu_constant("COL_TILE")
+CHUNK = THREADS * UNROLL
+
+
+WARPS = THREADS // 32
+
+
+def _tile_cells(events, b, kept, p0, t0, tc, start):
+    """The cells the kept events cover inside one tile, in the kernel's
+    [channel][row][column - t0] order: (cell, event index + 1) pairs."""
+    notes, ons, offs, vels = events
+    r = notes[b, kept].astype(np.int64) - p0
+    on = ons[b, kept].astype(np.int64) - start
+    off = offs[b, kept].astype(np.int64) - start
+    vel = vels[b, kept].astype(np.int64)
+    e1 = kept.astype(np.int64) + 1
+    at = (vel >= 0) & (on >= t0) & (on < t0 + tc)  # channel 0: the onset
+    lo, hi = np.maximum(on, t0), np.minimum(off, t0 + tc)  # channel 1: the span
+    n = np.maximum(hi - lo, 0)
+    step = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    cells = np.concatenate([r[at] * tc + on[at] - t0,
+                            np.repeat((PITCH_TILE + r) * tc - t0 + lo, n) + step])
+    return cells, np.concatenate([e1[at], np.repeat(e1, n)])
+
+
+def _lanes(kept):
+    """The lane that folds each kept event: event i of chunk c sits in warp
+    (i % CHUNK % THREADS) // 32, whose queue holds its events in index
+    order; queue slot j goes to lane j % 32."""
+    group = (kept // CHUNK) * WARPS + kept % CHUNK % THREADS // 32
+    rank = np.zeros(len(kept), np.int64)
+    for g in np.unique(group):
+        rank[group == g] = np.arange(np.count_nonzero(group == g))
+    return group * 32 + rank % 32
+
+
+def _k1_model(notes, ons, offs, vels, T, start, seed=0):
+    """numpy model of ``csrc/roll_rasterize.cu``: per (sample, pitch tile,
+    column tile), chunks walked from the last down with the pad tail's
+    chunks skipped; each warp queues its tile events in index order and
+    each lane folds its queued events into a partial of the highest
+    covering index + 1, in a shuffled order; the partials merge by the
+    larger index; a cell then takes its winner's velocity or off - on, and
+    0 where no event covers it."""
+    events = (notes, ons, offs, vels)
+    rng = np.random.RandomState(seed)
+    B, E = notes.shape
+    out = np.full((B, 2, 128, T), np.nan, np.float32)
+    n_chunks = -(-E // CHUNK)
+    for b in range(B):
+        first = next((k for k in reversed(range(n_chunks))
+                      if (notes[b, k * CHUNK:(k + 1) * CHUNK] >= 0).any()), -1)
+        walked = np.arange(min(E, (first + 1) * CHUNK))
+        for p0 in range(0, 128, PITCH_TILE):
+            r = notes[b, walked].astype(np.int64) - p0
+            kept = walked[(r >= 0) & (r < PITCH_TILE)]
+            lanes = _lanes(kept)
+            for t0 in range(0, T, COL_TILE):
+                tc = min(COL_TILE, T - t0)
+                cells, e1 = _tile_cells(events, b, kept, p0, t0, tc, start)
+                lane_of = dict(zip(kept + 1, lanes))
+                owners, lane = np.unique([lane_of[e] for e in e1], return_inverse=True)
+                partial = np.zeros((max(len(owners), 1), 2 * PITCH_TILE * tc), np.int64)
+                order = rng.permutation(len(cells))
+                np.maximum.at(partial, (lane.reshape(-1)[order], cells[order]), e1[order])
+                win = partial.max(axis=0).reshape(2, PITCH_TILE, tc)
+                e = np.maximum(win - 1, 0)
+                value = np.stack([vels[b, e[0]].astype(np.float32),
+                                  (offs[b, e[1]].astype(np.int64)
+                                   - ons[b, e[1]].astype(np.int64)).astype(np.float32)])
+                out[b, :, p0:p0 + PITCH_TILE, t0:t0 + tc] = np.where(win != 0, value, 0.0)
+    return out
+
+
+def _one_pitch(rng, B, E, T):
+    notes, ons, offs, vels = _random_events(rng, B, E, T, 0)
+    notes[notes >= 0] = 60
+    return notes, ons, offs, vels
+
+
+def _past_one_chunk(rng):
+    """Three chunks: valid notes up to index 5000, then a pad tail."""
+    notes, ons, offs, vels = _random_events(rng, 1, 2 * CHUNK + 100, 40, 3)
+    notes[:, 5000:] = -1
+    return notes, ons, offs, vels
+
+
+# (label, events, T, start): the JAX kernel tests' shapes, the order and pad
+# cases, a skewed file, more than one chunk, and more than one column tile
+MODEL_CASES = [
+    ("random_3x32_T50_s5", lambda: _random_events(np.random.RandomState(0), 3, 32, 50, 5), 50, 5),
+    ("random_2x128_T50_s100", lambda: _random_events(np.random.RandomState(1), 2, 128, 50, 100),
+     50, 100),
+    ("random_1x16_T96", lambda: _random_events(np.random.RandomState(2), 1, 16, 96, 0), 96, 0),
+    ("last_writer", lambda: LAST_WRITER, 50, 0),
+    ("holes_and_pad_tail", lambda: _holes_and_pad_tail(np.random.RandomState(3), 4, 256), 50, 0),
+    ("all_pad", lambda: (np.full((2, 8), -1, np.int32),) + (np.zeros((2, 8), np.int32),) * 3,
+     50, 0),
+    ("one_pitch", lambda: _one_pitch(np.random.RandomState(5), 2, 600, 60), 60, 0),
+    ("past_one_chunk", lambda: _past_one_chunk(np.random.RandomState(6)), 40, 3),
+    ("T2000", lambda: _random_events(np.random.RandomState(7), 1, 400, 2000, 0), 2000, 0),
+]
+
+
+@pytest.mark.parametrize("label,make,T,start", MODEL_CASES, ids=[c[0] for c in MODEL_CASES])
+def test_k1_model_matches_jax(label, make, T, start):
+    events = make()
+    ref = np.asarray(rasterize_events_jax(*events, num_steps=T, start=start, impl="xla"))
+    np.testing.assert_array_equal(_k1_model(*events, T, start), ref)
+    np.testing.assert_array_equal(
+        np.asarray(rasterize_events_pallas(*events, num_steps=T, start=start, interpret=True)),
+        ref)
+    if label == "one_pitch":
+        assert ref[:, :, 60].any() and not np.delete(ref, 60, axis=2).any()
 
 
 def test_midi_to_events_matches_jax(midi_fixture_dir):
