@@ -100,6 +100,21 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               dB on every bin, <= 2e-4 int16 flips), timed beside the
               sequential call. Runs after phase 5; K2's launches in the
               ``kernels`` line add this path's to the serve path's.
+11. train_gandes — GAN-DES training at ``GanDesConfig()`` width (B = 30,
+              20x20, mel 128x216, 1000 customers, lr 2e-5, seed 0) on
+              ``cuda``, its real side ``MaestroDatasetGanDes(batch_size=30)``
+              on the card over 4 synthetic 150 s files: ``none`` 4 steps
+              straight and 3 + resumed to 4 (bitwise equal), ``surrogate``
+              and ``reinforce`` 2 steps, one step writing WAVs, ``none`` 2
+              steps with the sequential host stage; the others run
+              ``des_parallel=16``. Steps/s, ``host_des`` and ``device_step``
+              per step; K2's launches (counter set to 0 before, read after)
+              equal to the fake clips plus the real slices; one step of each
+              mode on the card vs the CPU (losses, D's gradients, G's
+              through the card's post-update D and surrogate, float64
+              printed beside) and twice on the card bitwise; the G forward
+              twice bitwise; the busy share of one loop step. K2's
+              launches in the ``kernels`` line add this path's.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Bounds use the H100 SXM's published
@@ -260,6 +275,8 @@ def phase_kernel():
     # JAX package's kernel tests, the blank clip's slaney variant, and the
     # serve path's dynamic hop len // 215 at pow2 buckets up to the synth's
     # 190 s timeline cap (2^23 samples)
+    # hop1025 is GAN-DES training's real 5 s slice (220500 samples, hop
+    # 220500 // 215, 216 frames)
     cases = [("hop512", 44100, 512, True, False), ("hop1025", 220500, 1025, True, False),
              ("hop220", 44100, 220, True, False), ("blank_slaney", 220500, 512, False, True)]
     cases += [(f"serve_2^{p}", 1 << p, (1 << p) // 215, True, False) for p in (18, 20, 22, 23)]
@@ -1404,6 +1421,270 @@ def phase_gandes_parallel():
     return launches
 
 
+def _rel_err(a, b) -> float:
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def phase_train_gandes(work_dir):
+    """GAN-DES training at ``GanDesConfig()`` width on the card (z 100,
+    gen_dim 32, 20x20 matrices, mel 128x216, 1000 customers, 0.5 s DES
+    budget, additive synth; B = 30, lr 2e-5; random weights from seed 0), the
+    real side ``MaestroDatasetGanDes(batch_size=30)`` over 4 synthetic files
+    of 150 s (31 five-second slices each, 30 sampled). Returns K2's launches
+    on the path: one per fake clip and one per real slice."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from gandes_tpu_torch.data.datasets import DataLoader, MaestroDatasetGanDes, my_collate
+    from gandes_tpu_torch.ops.mel_power import mel_power_cuda
+    from gandes_tpu_torch.train import checkpoint as ckpt
+    from gandes_tpu_torch.train import gandes_loop, steps
+
+    t_phase = time.perf_counter()
+    corpus = os.path.join(work_dir, "gandes_corpus")
+    corpus_bytes = write_corpus(corpus, n_files=4, seconds=150.0, seed=1)
+    base = gandes_loop.GanDesConfig()
+    counted = {"clips": 0, "slices": 0}
+    decodes = []  # (mats, fake) of every host stage, in order
+    real_m2w = gandes_loop.matrix_to_wav
+
+    def recording_m2w(mats, **kw):
+        fake = real_m2w(mats, **kw)
+        counted["clips"] += len(mats)
+        decodes.append((torch.from_numpy(mats), fake))
+        return fake
+
+    class Counting:
+        """A fresh shuffled loader over the corpus (the CLI's), counting the
+        real slices of every batch it yields, skipped ones included."""
+
+        def __iter__(self):
+            ds = MaestroDatasetGanDes(batch_size=base.batch_size, input_folder=corpus,
+                                      device=DEVICE)
+            for batch in DataLoader(ds, batch_size=1, shuffle=True, collate_fn=my_collate):
+                counted["slices"] += len(batch)
+                yield batch
+
+    def run(name, mode="none", seed_np=True, max_steps=None, **kw):
+        cfg = gandes_loop.GanDesConfig(**{
+            "model_path": os.path.join(work_dir, name),
+            "log_path": os.path.join(work_dir, name + "_logs") + "/",
+            "out_dir": os.path.join(work_dir, name + "_out"), "g_update": mode,
+            "des_parallel": 16, "write_wav": False, "profile": True, "display_step": 100,
+            "save_step": 2, "resume": True, **kw})
+        if seed_np:
+            np.random.seed(0)
+        random.seed(0)  # the dataset samples its slices with Python's random
+        first = len(decodes)
+        t = time.perf_counter()
+        state, hist = gandes_loop.train_gandes(Counting(), cfg, max_steps=max_steps,
+                                               device=DEVICE)
+        _sync()
+        wall = time.perf_counter() - t
+        prof = hist["profile"]
+        n = prof["device_step"]["count"] if "device_step" in prof else 0
+        summary = {"steps": n, "wall_s": round(wall, 3), "steps_per_s": round(n / wall, 4),
+                   "state_step": state.step, "d_loss": hist["disc"], "g_loss": hist["gen"],
+                   "losses_finite": all(math.isfinite(v) for k in ("disc", "gen")
+                                        for v in hist[k])}
+        for phase in ("host_des", "device_step"):
+            if phase in prof:
+                summary.update({f"{phase}_p50_s": prof[phase]["p50_s"],
+                                f"{phase}_mean_s": prof[phase]["mean_s"],
+                                f"{phase}_p95_s": prof[phase]["p95_s"]})
+        return state, summary, decodes[first:]
+
+    mel_power_cuda.launches = 0
+    gandes_loop.matrix_to_wav = recording_m2w
+    try:
+        straight, runs_straight, straight_decodes = run("straight")
+        _, runs_split, split_decodes = run("split", max_steps=3)
+        resumed, runs_resumed, _ = run("split", seed_np=False)
+        s_state_run, runs_surrogate, surrogate_decodes = run("surrogate", "surrogate",
+                                                             max_steps=2)
+        _, runs_reinforce, reinforce_decodes = run("reinforce", "reinforce", max_steps=2)
+        _, runs_wav, wav_decodes = run("wav", max_steps=1, write_wav=True)
+        wavs = sorted(os.listdir(os.path.join(work_dir, "wav_out", "wav")))
+        _, runs_seq, _ = run("sequential", max_steps=2, des_parallel=None)
+    finally:
+        gandes_loop.matrix_to_wav = real_m2w
+    launches, clips, slices = mel_power_cuda.launches, counted["clips"], counted["slices"]
+    # the straight and the split run's first host stage: G's matrices and the
+    # fake mels, bit for bit (what the resume check rests on)
+    first_stage_equal = [torch.equal(a, b) for a, b in zip(straight_decodes[0],
+                                                           split_decodes[0])]
+    resume_equal = (_tensors_equal(straight.gen.state_dict(), resumed.gen.state_dict())
+                    and _tensors_equal(straight.disc.state_dict(), resumed.disc.state_dict())
+                    and _tensors_equal(straight.g_opt.state_dict(), resumed.g_opt.state_dict())
+                    and _tensors_equal(straight.d_opt.state_dict(), resumed.d_opt.state_dict())
+                    and straight.step == resumed.step == 4
+                    and runs_split["d_loss"] + runs_resumed["d_loss"] == runs_straight["d_loss"])
+
+    # one step of each mode on the card against the same step on the CPU,
+    # from the seed-0 state, on two input sets: "loop", the loop's own first
+    # inputs (a real batch, each run's first host stage's fake mels and
+    # matrices, step 0's noise), and "uniform", mels drawn from U(-4, 0) (the
+    # CPU tests' inputs) with the same matrices and noise. On the loop's
+    # mel-dB inputs D's first Adam step saturates its output on the fakes
+    # (sigmoid ~1e-7), so G's gradient vanishes (surrogate) or its
+    # advantages are the clip's rounding (reinforce); and the mel floor's
+    # plateaus tie D's max pools, whose gradient cuDNN's FFT convolution
+    # (which rounds a plateau's outputs by position) and the CPU's route to
+    # different pixels. G's gradients are checked on the uniform set,
+    # against the CPU in float32, and printed on the loop's. Against float64
+    # they are printed only: D's max pools route ~60 of the 829,440 input
+    # gradient elements differently in float64 (near ties), which moves G's
+    # surrogate gradient by ~37 of the budget on the CPU as on the card,
+    # while G's own float32 backward, given float64's input gradient, stays
+    # within 0.008 of it. On the card
+    # the Adams take the CPU's configuration (capturable off), as in phase
+    # train_mmgan; the loop's capturable Adams are printed beside.
+    real = next(iter(Counting()))
+    noise = gandes_loop.draw_step_inputs(base.seed, 0, len(real), base.z_dim, "cpu")[0]
+    first_inputs = {"none": straight_decodes[0], "surrogate": surrogate_decodes[0],
+                    "reinforce": reinforce_decodes[0]}
+
+    uniform = [torch.rand(real.shape, generator=torch.Generator().manual_seed(i)) * 4 - 4
+               for i in range(2)]
+
+    def inputs(mode, variant):
+        """(real, fake, noise, mats) on the CPU."""
+        mats, fake = first_inputs[mode]
+        if variant == "loop":
+            return real.cpu(), fake.cpu(), noise, mats
+        return uniform[0], uniform[1], noise, mats
+
+    def one_step(mode, variant, dev, capturable=False):
+        st = gandes_loop.init_state_for_config(base, dev)
+        s_st = gandes_loop.init_surrogate_for_config(base, dev) if mode == "surrogate" else None
+        if not capturable:
+            st.g_opt, st.d_opt = (
+                torch.optim.Adam(m.parameters(), lr=base.lr, betas=steps.GANDES_ADAM_BETAS,
+                                 eps=steps.ADAM_EPS) for m in (st.gen, st.disc))
+            if s_st is not None:
+                s_st.opt = torch.optim.Adam(s_st.model.parameters(), lr=base.surrogate_lr,
+                                            betas=steps.ADAM_BETAS, eps=steps.ADAM_EPS)
+        r, f, z, x = (a.to(dev) for a in inputs(mode, variant))
+        if mode == "surrogate":
+            st, s_st, m = steps.make_gandes_train_step_surrogate()(st, s_st, r, f, x, z)
+        elif mode == "reinforce":
+            st, m = steps.make_gandes_train_step_reinforce(base.reinforce_sigma)(st, r, f, x, z)
+        else:
+            st, m = steps.make_gandes_train_step()(st, r, f)
+        _sync()
+        return st, s_st, {k: float(v) for k, v in m.items()}
+
+    def named(module):
+        return [(n, p.grad) for n, p in module.named_parameters()]
+
+    def g_grads_through(card, card_s, mode, variant, dev, dtype):
+        """G's gradients from the initial G on ``dev`` through the card
+        step's post-update D (and surrogate)."""
+        st = gandes_loop.init_state_for_config(base, dev)
+        st.disc.load_state_dict(card.disc.state_dict())
+        for m in (st.gen, st.disc):
+            m.to(dtype)
+        _, f, z, x = (a.to(dev, dtype) for a in inputs(mode, variant))
+        if mode == "surrogate":
+            s_model = gandes_loop.init_surrogate_for_config(base, dev).model
+            s_model.load_state_dict(card_s.model.state_dict())
+            _, grads = steps.surrogate_g_loss_and_grads(st, s_model.to(dtype), f, z)
+        else:
+            _, grads, _ = steps.reinforce_g_loss_and_grads(st, f, x, z, base.reinforce_sigma)
+        return [(n, g) for (n, _), g in zip(st.gen.named_parameters(), grads)]
+
+    vs_cpu = {}
+    for mode in ("none", "surrogate", "reinforce"):
+        for variant in ("loop", "uniform"):
+            (cs, css, cm), (ps, _, pm) = (one_step(mode, variant, dev) for dev in (DEVICE, "cpu"))
+            r = vs_cpu[f"{mode}_{variant}"] = {
+                "losses": cm, "loss_rel_err": {k: _rel_err(cm[k], pm[k]) for k in pm},
+                "d_grad": _grad_err(named(cs.disc), named(ps.disc))}
+            cap_m = one_step(mode, variant, DEVICE, capturable=True)[2]
+            r["capturable_adam_loss_rel_err"] = {k: _rel_err(cap_m[k], pm[k]) for k in pm}
+            if mode != "none":
+                card_g = named(cs.gen)
+                r["g_grad_vs_cpu64"] = _grad_err(card_g, g_grads_through(
+                    cs, css, mode, variant, "cpu", torch.float64))
+                r["g_grad_vs_cpu32"] = _grad_err(card_g, g_grads_through(
+                    cs, css, mode, variant, "cpu", torch.float32))
+                r["g_grad_cpu32_vs_cpu64"] = _grad_err(*(g_grads_through(
+                    cs, css, mode, variant, "cpu", dt) for dt in (torch.float32, torch.float64)))
+            if variant == "loop":  # the same step twice on the card (capturable Adams)
+                (a, sa, ma), (b, sb, mb) = (one_step(mode, variant, DEVICE, capturable=True)
+                                            for _ in range(2))
+                r["repeat_equal"] = (
+                    ma == mb and _tensors_equal(a.gen.state_dict(), b.gen.state_dict())
+                    and _tensors_equal(a.disc.state_dict(), b.disc.state_dict())
+                    and (sa is None or _tensors_equal(sa.model.state_dict(),
+                                                      sb.model.state_dict())))
+
+    # the loop's train-mode G forward at B = 30, twice from the seed-0 state
+    forward_repeat_equal = torch.equal(*(
+        steps.make_gandes_gen_forward()(gandes_loop.init_state_for_config(base, DEVICE),
+                                        noise.to(DEVICE)) for _ in range(2)))
+
+    # device busy share of one loop step (G forward, host stage, none step)
+    st = gandes_loop.init_state_for_config(base, DEVICE)
+    step = steps.make_gandes_train_step()
+    forward = steps.make_gandes_gen_forward()
+    real_dev = real.to(DEVICE)
+    busy_dir = os.path.join(work_dir, "busy")
+
+    def loop_step(count):
+        z = gandes_loop.draw_step_inputs(base.seed, count, len(real), base.z_dim, DEVICE)[0]
+        mats = forward(st, z)
+        fake = real_m2w(mats.cpu().numpy(), size=20, start=0, end=216, log_path=busy_dir + "/",
+                        out_dir=busy_dir, parallel=16, write_wav=False, device=DEVICE)
+        step(st, real_dev, fake)
+
+    os.makedirs(busy_dir, exist_ok=True)
+    loop_step(0)
+    busy = device_busy(lambda: loop_step(1))
+    fake_dev = first_inputs["none"][1].to(DEVICE)
+    step_busy = device_busy(lambda: step(st, real_dev, fake_dev))
+    step_host_ops = _top_host_ops(lambda: step(st, real_dev, fake_dev))
+
+    row = {"phase": "train_gandes", "phase_s": round(time.perf_counter() - t_phase, 2),
+           "batch_size": base.batch_size, "lr": base.lr, "corpus_files": 4,
+           "corpus_bytes": corpus_bytes, "none_parallel16": runs_straight,
+           "none_split_3": runs_split, "none_resumed_to_4": runs_resumed,
+           "surrogate": runs_surrogate, "reinforce": runs_reinforce,
+           "none_sequential": runs_seq, "write_wav_run": runs_wav, "wav_files": len(wavs),
+           "resume_equal": resume_equal, "fake_clips": clips, "real_slices": slices,
+           "k2_launches": launches, "forward_repeat_equal": forward_repeat_equal,
+           "first_stage_mats_fake_equal": first_stage_equal,
+           "surrogate_steps": s_state_run.step, "vs_cpu": vs_cpu,
+           "one_step_profile": busy, "train_step_profile": step_busy,
+           "train_step_host_ops": step_host_ops,
+           "cudnn_deterministic_after_training": torch.backends.cudnn.deterministic}
+    emit(row)
+    failures = []
+    if launches <= 0 or launches != clips + slices:
+        failures.append("k2 launches != fake clips + real slices")
+    if not (resume_equal and forward_repeat_equal):
+        failures.append("resume / G forward repeat")
+    if wavs != sorted(f"output_{i}.wav" for i in range(len(wav_decodes[0][0]))):
+        failures.append("wav files")
+    for name, r in (("straight", runs_straight), ("surrogate", runs_surrogate),
+                    ("reinforce", runs_reinforce), ("sequential", runs_seq)):
+        if not r["losses_finite"] or r["steps"] != (4 if name == "straight" else 2):
+            failures.append(f"{name} steps/losses")
+    for name, r in vs_cpu.items():
+        if (r["d_grad"]["err"] > 1 or not r.get("repeat_equal", True)
+                or r["loss_rel_err"]["d_loss"] > 1e-4
+                or (name.endswith("uniform")
+                    and r.get("g_grad_vs_cpu32", {"err": 0.0})["err"] > 1)):
+            failures.append(f"card vs cpu ({name})")
+    if torch.backends.cudnn.deterministic:
+        failures.append("the train step left cudnn.deterministic set")
+    if failures:
+        raise AssertionError(f"train_gandes: {failures}")
+    return launches
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
@@ -1438,6 +1719,7 @@ def main() -> int:
         phase_serve_mmgan()
         seq = phase_train_mmgan(work)
         phase_train_fast(work, seq)
+        mel_launches += phase_train_gandes(work)
 
     r = next(row for row in rows if row["case"] == "serve_2^22")  # the serve clips' bucket
     # the pickler's own events for one launch
@@ -1445,7 +1727,8 @@ def main() -> int:
     kernels = [{"name": "mel_power", "route": "cuda",
                 "source": "gandes_tpu_torch/ops/csrc/mel_power.cu",
                 "replaces": "gandes_tpu/ops/pallas_mel.py:101",
-                # the serve path's and the parallel matrix_to_wav's
+                # the serve path's, the parallel matrix_to_wav's and GAN-DES
+                # training's (fake clips and real slices)
                 "launches": mel_launches, "max_abs_err": max(x["max_abs_err"] for x in rows),
                 "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

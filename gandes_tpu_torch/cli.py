@@ -6,6 +6,8 @@ Ported commands, with ``gandes_tpu/cli.py``'s flags plus ``--device``
     python -m gandes_tpu_torch.cli pickle-dataset --midi-root DIR --out data/preprocessed_data_50.pkl [--device-rasterize]
     python -m gandes_tpu_torch.cli train-mmgan --data data/preprocessed_data_50.pkl --epochs 5
         [--des-parallel 16] [--fused-io]
+    python -m gandes_tpu_torch.cli train-gandes --midi-root DIR --steps 20
+        [--g-update none|surrogate|reinforce] [--des-parallel 16] [--resume]
     python -m gandes_tpu_torch.cli generate-mmgan [--torch-checkpoint mmgan_64_64_epoch_5.pth] --n 4
     python -m gandes_tpu_torch.cli serve --model mmgan|gandes|both [--torch-checkpoint gen.pt]
 
@@ -58,6 +60,29 @@ def _cmd_train_mmgan(args):
     dataset = MaestroDatasetPickle(args.data, data_dir=".")
     state, history = train_mmgan(dataset, cfg, max_batches=args.max_batches, device=args.device)
     print(f"done: {len(history['disc'])} epochs")
+
+
+def _cmd_train_gandes(args):
+    if args.np_seed is not None:
+        # deterministic DES routing: the simulator consumes the global numpy
+        # stream (reference parity)
+        np.random.seed(args.np_seed)
+    from gandes_tpu_torch.data.datasets import DataLoader, MaestroDatasetGanDes, my_collate
+    from gandes_tpu_torch.train.gandes_loop import GanDesConfig, train_gandes
+
+    # the real side's mels are taken on the training device (K2 on the card)
+    dataset = MaestroDatasetGanDes(batch_size=args.batch_size, input_folder=args.midi_root,
+                                   sound_font=args.sound_font, device=args.device)
+    loader = DataLoader(dataset, batch_size=1, shuffle=True, collate_fn=my_collate)
+    cfg = GanDesConfig(batch_size=args.batch_size, model_path=args.models_dir, lr=args.lr,
+                       d_lr=args.d_lr, resume=args.resume, g_update=args.g_update,
+                       des_parallel=args.des_parallel, mesh_shape=args.mesh,
+                       profile=args.profile, trace_dir=args.trace_dir,
+                       # the fake path must render with the SAME synth as
+                       # the real dataset, or D separates on timbre alone
+                       sound_font=args.sound_font, compute_dtype=args.compute_dtype)
+    state, history = train_gandes(loader, cfg, max_steps=args.steps, device=args.device)
+    print(f"done: {len(history['disc'])} steps")
 
 
 def _cmd_generate_mmgan(args):
@@ -165,6 +190,43 @@ def main(argv=None):
                     help="bf16 is not ported yet: raises")
     sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
     sp.set_defaults(fn=_cmd_train_mmgan)
+
+    sp = sub.add_parser("train-gandes", help="train the GAN-DES spectrogram GAN")
+    sp.add_argument("--midi-root", required=True)
+    sp.add_argument("--sound-font", default=None,
+                    help=".sf2 path: SF2 playback is not ported and raises (default: additive "
+                         "synth)")
+    sp.add_argument("--batch-size", type=int, default=30)
+    sp.add_argument("--steps", type=int, default=None)
+    sp.add_argument("--models-dir", default="models")
+    sp.add_argument("--lr", type=float, default=2e-5,
+                    help="Adam learning rate (reference default 2e-5)")
+    sp.add_argument("--d-lr", type=float, default=None,
+                    help="separate D learning rate (GAN balance knob; default: --lr)")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the newest gen_<step>_<ts> checkpoint under "
+                         "--models-dir (full state incl. optimizers; the step-derived noise "
+                         "streams continue at the saved step; the DES's global-numpy stream "
+                         "is process-level, so pass --np-seed for a reproducible "
+                         "continuation)")
+    sp.add_argument("--g-update", choices=["none", "surrogate", "reinforce"], default="none",
+                    help="'none' = reference semantics (G gets zero gradient); 'surrogate' = "
+                         "learned matrix->mel surrogate; 'reinforce' = score-function "
+                         "estimator through the real DES->synth->mel pipeline")
+    sp.add_argument("--np-seed", type=int, default=None,
+                    help="seed the global numpy stream (DES routing) at process start")
+    sp.add_argument("--des-parallel", type=int, default=None,
+                    help="run the batch's DES sims on N threads (fast mode)")
+    sp.add_argument("--profile", action="store_true",
+                    help="print a per-phase StepTimer table every display_step")
+    # the JAX command's flags for options that are not ported yet: given,
+    # they raise NotImplementedError naming their ROADMAP.md Queue 1 item
+    sp.add_argument("--mesh", default=None, help="not ported yet: raises")
+    sp.add_argument("--trace-dir", default=None, help="not ported yet: raises")
+    sp.add_argument("--compute-dtype", choices=["float32", "bf16"], default="float32",
+                    help="bf16 is not ported yet: raises")
+    sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    sp.set_defaults(fn=_cmd_train_gandes)
 
     sp = sub.add_parser("generate-mmgan", help="generate a MIDI from a checkpoint")
     sp.add_argument("--checkpoint", default=None,

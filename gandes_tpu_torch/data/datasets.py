@@ -1,5 +1,5 @@
-"""MM-GAN datasets, loaders and the offline MAESTRO pickler (port of
-``gandes_tpu/data/datasets.py``, MM-GAN part; numpy-first).
+"""Datasets, loaders and the offline MAESTRO pickler (port of
+``gandes_tpu/data/datasets.py``).
 
 * ``MaestroDatasetPickle`` — the MM-GAN training set: a pickled list of
   (piano_roll, durations, beats) windows
@@ -11,7 +11,14 @@
   50-step windows, window 0 skipped, per-file beats attached to every
   window. Its fast path rasterizes batches of files in one
   ``rasterize_events`` call: K1 on the card.
-* ``DataLoader`` — a minimal numpy batch iterator (shuffle / drop_last /
+* ``MaestroDatasetTorch`` — per-file ``.pt`` tensors (:90-100).
+* ``InputSong`` / ``MaestroDatasetGanDes`` / ``my_collate`` /
+  ``collect_real_mels`` — the GAN-DES audio path (`GAN_DES/datasets.py`):
+  MIDI -> audio (the additive synth instead of FluidSynth) -> 5 s slices ->
+  <=k random mel spectrograms per item, concatenated across the batch. The
+  audio and every mel stay on the ``device`` they are given: K2 on
+  ``"cuda"``, one launch per slice.
+* ``DataLoader`` — a minimal batch iterator (shuffle / drop_last /
   collate).
 
 Path handling: the reference hardcodes Windows backslash paths
@@ -23,6 +30,7 @@ from __future__ import annotations
 import glob
 import os
 import pickle
+import random as _random
 
 import numpy as np
 
@@ -275,3 +283,152 @@ def build_window_pickle(midi_root, out_path, sample_size=300, sequence_length=50
     with open(out_path, "wb") as f:
         pickle.dump(preprocessed, f)
     return len(preprocessed)
+
+
+class MaestroDatasetTorch(Dataset):
+    """Per-file ``.pt`` tensors (`MMGAN_MIDI_DES/datasets.py:90-100`), each
+    item a tuple of numpy arrays."""
+
+    def __init__(self, root_dir, sequence_length=100, beats_length=50, device="cpu"):
+        self.file_list = sorted(glob.glob(os.path.join(root_dir, "*.pt")))
+
+    def __len__(self):
+        return len(self.file_list)
+
+    def __getitem__(self, idx):
+        import torch
+
+        item = torch.load(self.file_list[idx], weights_only=False)
+        return tuple(_to_numpy(x) for x in item)
+
+
+# ----------------------------------------------------------------- GAN-DES
+
+
+def _five_second_slices(audio, sr, hop_s=5):
+    """``hop_s``-second slices of a 1-D wave (`GAN_DES/datasets.py:30-37,
+    78-83`): one per hop start up to the end, the last one the wave's final
+    ``hop_s`` seconds. Slices of a tensor are views on its device."""
+    n = hop_s * sr
+    return [audio[-n:] if i + n > len(audio) else audio[int(i):int(i) + n]
+            for i in np.arange(0, len(audio) + 1, n)]
+
+
+class InputSong(Dataset):
+    """One WAV -> 5 s mel slices (`GAN_DES/datasets.py:17-52`). The wave is
+    put on ``device`` once, so every slice's mel runs there (K2 on
+    ``"cuda"``); each item is a (128, 216) mel-dB tensor on ``device``."""
+
+    def __init__(self, audio_file, window_size=5, hop_length_audio=5, device="cuda"):
+        import torch
+
+        from gandes_tpu_torch.data.audio import load_wav
+
+        waveform, sample_rate = load_wav(audio_file, normalize=True, mono=True)
+        self.orig_waveform = waveform
+        self.sample_rate = sample_rate
+        self.audio_file_length = len(waveform) / sample_rate
+        self.window_size = window_size
+        self.hop_length_audio = hop_length_audio
+        wave = torch.from_numpy(np.ascontiguousarray(waveform, np.float32)).to(device)
+        self.audio_files = _five_second_slices(wave, sample_rate, hop_length_audio)
+
+    def __len__(self):
+        return len(self.audio_files)
+
+    def __getitem__(self, item):
+        from gandes_tpu_torch.music.mel import melspectrogram_db_tensor
+
+        return melspectrogram_db_tensor(self.audio_files[item], self.sample_rate)
+
+
+class MaestroDatasetGanDes(Dataset):
+    """MIDI -> synth audio -> 5 s slices -> <=batch_size random mels
+    (`GAN_DES/datasets.py:55-91`, FluidSynth replaced by the additive synth,
+    no temp-wav round trip). The render stays on ``device`` and is cropped
+    to its true length before slicing, so every slice's mel runs there (one
+    K2 launch per slice on ``"cuda"``; a numpy slice would take the mel's
+    plain version on the CPU); each item is a (k, 128, 216) mel-dB tensor on
+    ``device``. The slices are subsampled with Python's global ``random``,
+    as the reference does."""
+
+    def __init__(self, batch_size, input_folder="data/maestro-v3.0.0",
+                 metadata_json=None, sample_rate=44100, sound_font=None, device="cuda"):
+        import json
+
+        self.INPUT_FOLDER = input_folder
+        self.k = batch_size
+        self.sample_rate = sample_rate
+        # None -> the additive synth; an existing .sf2 raises until SF2
+        # playback is ported (music/synth.py)
+        self.sound_font = sound_font
+        self.device = device
+        meta = metadata_json or os.path.join(input_folder, "maestro-v3.0.0.json")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                self.data = json.load(f)["midi_filename"]
+            self._keys = sorted(self.data, key=lambda k: int(k))
+        else:
+            files = sorted(glob.glob(os.path.join(input_folder, "**", "*.mid*"), recursive=True))
+            self.data = {str(i): os.path.relpath(p, input_folder) for i, p in enumerate(files)}
+            self._keys = [str(i) for i in range(len(files))]
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index):
+        import torch
+
+        from gandes_tpu_torch.music.mel import melspectrogram_db_tensor
+        from gandes_tpu_torch.music.synth import render_midi
+
+        midi_path = os.path.join(self.INPUT_FOLDER, self.data[str(index)])
+        audio, true_len = render_midi(midi_path, sr=self.sample_rate, as_tensor=True,
+                                      sound_font=self.sound_font, device=self.device)
+        splits = _five_second_slices(audio[:true_len], self.sample_rate)
+        if len(splits) > self.k:
+            splits = _random.sample(splits, self.k)
+        return torch.stack([melspectrogram_db_tensor(s, self.sample_rate) for s in splits])
+
+
+def my_collate(batch):
+    """Concatenate variable split counts (`GAN_DES/datasets.py:94-100`)."""
+    import torch
+
+    return torch.cat(list(batch), 0)
+
+
+def collect_real_mels(midi_dir, n, sound_font=None, sample_rate=44100, seed=0, device="cuda"):
+    """A balanced real-side mel pool for evaluation: up to ``n`` full-window
+    mel slices drawn ROUND-ROBIN across the directory's MIDI files.
+
+    The naive loop (take batches file-by-file until n) over-weights the
+    first files and counts slices toward n before the short-file filter
+    drops them; evaluation statistics then measure distance to the first
+    network(s) rather than the directory's distribution. Here each file
+    contributes ceil(n/len(files)) candidate slices, short-file renders
+    (fewer mel frames than the full 5 s window) are dropped BEFORE
+    counting, and the final pool interleaves files so truncation at n
+    stays balanced. Returns (mels, n_files_contributing), the mels one
+    tensor on ``device``."""
+    import torch
+
+    ds = MaestroDatasetGanDes(batch_size=1, input_folder=midi_dir, sample_rate=sample_rate,
+                              sound_font=sound_font, device=device)
+    if len(ds) == 0:
+        raise ValueError(f"no MIDI files under {midi_dir}")
+    ds.k = max(1, -(-n // len(ds)))  # ceil(n / n_files) per file
+    _random.seed(seed)  # long files subsample their slices via random.sample
+    batches = []
+    for i in range(len(ds)):
+        batches.append(ds[i])
+        frames = max(b.shape[-1] for b in batches)
+        kept = sum(b.shape[0] for b in batches if b.shape[-1] == frames)
+        if kept >= n:
+            break
+    frames = max(b.shape[-1] for b in batches)
+    full = [b for b in batches if b.shape[-1] == frames]
+    # interleave: slice j of every file before slice j+1 of any
+    order = [b[j] for j in range(max(b.shape[0] for b in full))
+             for b in full if j < b.shape[0]]
+    return torch.stack(order[:n]), len(full)

@@ -10,6 +10,8 @@
 * ``torch_default_`` — torch's default Linear/Conv init, kaiming-uniform
   (a=sqrt(5)) == U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the weight and the
   bias; the MM-GAN discriminators never get a custom init.
+* ``lecun_normal_`` — flax ``nn.Dense``'s default, for the JAX package's own
+  modules (``MelSurrogate``).
 
 Each takes an explicit ``torch.Generator``; the draws are a different stream
 from the JAX package's ``jax.random`` keys.
@@ -42,3 +44,18 @@ def torch_default_(layer: nn.Module, generator: torch.Generator) -> None:
     fan_in = layer.weight[0].numel()
     bound = 1.0 / math.sqrt(fan_in)
     nn.init.uniform_(layer.bias, -bound, bound, generator=generator)
+
+
+# std of a standard normal truncated to [-2, 2]; flax's truncated-normal
+# variance scaling divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(layer: nn.Linear, generator: torch.Generator) -> None:
+    """flax ``nn.Dense``'s default init: the weight from a normal of std
+    sqrt(1 / fan_in) truncated at two of its stds (``lecun_normal``), the bias
+    zero."""
+    std = math.sqrt(1.0 / layer.weight.shape[1]) / _TRUNC_STD
+    nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+    nn.init.zeros_(layer.bias)

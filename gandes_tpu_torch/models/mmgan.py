@@ -20,7 +20,7 @@ Architecture (`MMGAN_MIDI_DES/network_tests.py`), NCHW:
 Submodules carry the reference's names (``gen.{i}.0`` Linear, ``gen.{i}.1``
 BatchNorm1d, ``conv1``, ``conv2``, ``fc``), so a reference ``.pth`` loads
 with ``load_state_dict``. BatchNorm: momentum 0.1 (torch convention; flax
-0.9), eps 1e-5, and in train mode flax's statistics (``FlaxBatchNorm1d``).
+0.9), eps 1e-5, and in train mode flax's statistics (``models/batchnorm.py``).
 The Linear products stay ``torch.matmul`` (cuBLAS), as the JAX package left
 them to XLA.
 """
@@ -32,34 +32,8 @@ import math
 import torch
 from torch import nn
 
+from gandes_tpu_torch.models.batchnorm import FlaxBatchNorm1d
 from gandes_tpu_torch.models.initializers import torch_default_, xavier_normal_linear_
-
-
-class FlaxBatchNorm1d(nn.BatchNorm1d):
-    """``nn.BatchNorm1d`` whose train mode is flax's ``BatchNorm``
-    (``gandes_tpu/models/mmgan.py:46-48``).
-
-    A train-mode batch is normalised with its biased variance, as torch
-    does (computed as flax computes it, E[x^2] - E[x]^2), but
-    ``running_var`` is updated with the *biased* variance too (torch uses
-    the unbiased one, B/(B-1) larger). ``update_stats=False`` normalises in
-    train mode and leaves the running statistics alone, as the JAX steps
-    that discard the stats they compute do. Eval mode is
-    ``nn.BatchNorm1d``'s; the ``state_dict`` keys are unchanged.
-    """
-
-    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        # flax's fast variance: E[x^2] - E[x]^2, floored at 0
-        mean = x.mean(0)
-        var = ((x * x).mean(0) - mean * mean).clamp(min=0)
-        if update_stats:
-            with torch.no_grad():
-                self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
-                self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
-                self.num_batches_tracked.add_(1)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 def _gen_trunk(in_dim: int, hidden_dim: int, out_dim: int,

@@ -233,7 +233,8 @@ def _resolve_sound_font(sound_font: str | None) -> None:
     if os.path.isfile(sound_font):
         raise NotImplementedError(
             f"SF2 sample playback ({sound_font!r}) is not ported to gandes_tpu_torch "
-            f"yet; pass sound_font=None for the additive synth")
+            f"yet (ROADMAP.md Queue 1 item 8, SF2 renderer); pass sound_font=None for the "
+            f"additive synth")
     if os.path.basename(sound_font) == DEFAULT_SOUND_FONT:
         return
     raise FileNotFoundError(

@@ -12,7 +12,15 @@ directory named as the JAX package names its orbax directories
 * ``optim.pt`` — ``{"g_opt": ..., "d_opt": ..., "step": int}``, both Adams'
   ``state_dict``s.
 
-Both are saved from CPU copies and load with ``weights_only=True``. A save
+A GAN-DES ``gen_{step}_{ts}`` directory (:func:`save_gandes_state`) holds
+``model.pth``, the generator's bare ``state_dict`` (the reference's
+``gen_*.pt`` layout: ``serve --model gandes --torch-checkpoint`` and the JAX
+package's ``load_gandes_torch_checkpoint`` load it), ``disc.pth``, the mel
+discriminator's, and ``optim.pt``; in ``surrogate`` mode a companion
+``gen_{step}_{ts}_surrogate`` (:func:`save_surrogate_state`) holds the
+surrogate's ``model.pth`` and ``optim.pt`` (``{"opt": ..., "step": int}``).
+
+All are saved from CPU copies and load with ``weights_only=True``. A save
 writes a sibling ``.tmp`` directory and renames it into place, so a
 half-written checkpoint is never the newest one.
 
@@ -32,10 +40,11 @@ import shutil
 
 import torch
 
-from gandes_tpu_torch.train.steps import GANState
+from gandes_tpu_torch.train.steps import GANState, GanDesState, SurrogateState
 
 MODEL_FILE = "model.pth"
 OPTIM_FILE = "optim.pt"
+DISC_FILE = "disc.pth"
 
 
 def _cpu(tree):
@@ -73,29 +82,74 @@ def load_optimizer_state(opt: torch.optim.Optimizer, sd: dict) -> None:
             g["lr"] = holder
 
 
-def save_state(path: str, state: GANState) -> str:
+def _write_dir(path: str, files: dict) -> str:
+    """``torch.save`` each of ``files`` (name -> object) into a sibling
+    ``.tmp`` directory, then rename it to ``path``."""
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(_cpu(state.model.state_dict()), os.path.join(tmp, MODEL_FILE))
-    torch.save({"g_opt": optimizer_state(state.g_opt), "d_opt": optimizer_state(state.d_opt),
-                "step": int(state.step)}, os.path.join(tmp, OPTIM_FILE))
+    for name, obj in files.items():
+        torch.save(obj, os.path.join(tmp, name))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
     return path
 
 
+def _load(path: str, name: str):
+    return torch.load(os.path.join(os.path.abspath(path), name), map_location="cpu",
+                      weights_only=True)
+
+
+def save_state(path: str, state: GANState) -> str:
+    return _write_dir(path, {
+        MODEL_FILE: _cpu(state.model.state_dict()),
+        OPTIM_FILE: {"g_opt": optimizer_state(state.g_opt),
+                     "d_opt": optimizer_state(state.d_opt), "step": int(state.step)}})
+
+
 def restore_state(path: str, template: GANState) -> GANState:
     """Load a checkpoint into ``template`` (same widths; its device is kept,
     see :func:`load_optimizer_state`)."""
-    path = os.path.abspath(path)
-    template.model.load_state_dict(
-        torch.load(os.path.join(path, MODEL_FILE), map_location="cpu", weights_only=True),
-        strict=True)
-    optim = torch.load(os.path.join(path, OPTIM_FILE), map_location="cpu", weights_only=True)
+    template.model.load_state_dict(_load(path, MODEL_FILE), strict=True)
+    optim = _load(path, OPTIM_FILE)
     load_optimizer_state(template.g_opt, optim["g_opt"])
     load_optimizer_state(template.d_opt, optim["d_opt"])
+    template.step = int(optim["step"])
+    return template
+
+
+def save_gandes_state(path: str, state: GanDesState) -> str:
+    """A GAN-DES state as ``model.pth`` (the generator's bare state_dict),
+    ``disc.pth`` and ``optim.pt``."""
+    return _write_dir(path, {
+        MODEL_FILE: _cpu(state.gen.state_dict()), DISC_FILE: _cpu(state.disc.state_dict()),
+        OPTIM_FILE: {"g_opt": optimizer_state(state.g_opt),
+                     "d_opt": optimizer_state(state.d_opt), "step": int(state.step)}})
+
+
+def restore_gandes_state(path: str, template: GanDesState) -> GanDesState:
+    """Load a GAN-DES checkpoint into ``template`` (its device is kept)."""
+    template.gen.load_state_dict(_load(path, MODEL_FILE), strict=True)
+    template.disc.load_state_dict(_load(path, DISC_FILE), strict=True)
+    optim = _load(path, OPTIM_FILE)
+    load_optimizer_state(template.g_opt, optim["g_opt"])
+    load_optimizer_state(template.d_opt, optim["d_opt"])
+    template.step = int(optim["step"])
+    return template
+
+
+def save_surrogate_state(path: str, s_state: SurrogateState) -> str:
+    """A surrogate's state as ``model.pth`` and ``optim.pt``."""
+    return _write_dir(path, {
+        MODEL_FILE: _cpu(s_state.model.state_dict()),
+        OPTIM_FILE: {"opt": optimizer_state(s_state.opt), "step": int(s_state.step)}})
+
+
+def restore_surrogate_state(path: str, template: SurrogateState) -> SurrogateState:
+    template.model.load_state_dict(_load(path, MODEL_FILE), strict=True)
+    optim = _load(path, OPTIM_FILE)
+    load_optimizer_state(template.opt, optim["opt"])
     template.step = int(optim["step"])
     return template
 

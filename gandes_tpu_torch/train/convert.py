@@ -26,6 +26,12 @@ export_mmgan_torch_checkpoint`` writes it:
 states (``mu``, ``nu``, ``count``) into ``torch.optim.Adam`` state, with the
 weights' axis permutations.
 
+``gandes_train_state_from_flax`` does the same for a JAX GAN-DES ``GANState``
+(the DCGAN as above; ``MelDiscriminator``'s ``fc1`` follows a flatten, so
+its input axis is permuted from (h, w, c) to (c, h, w) as the MM-GAN D's
+``fc`` is), and ``mel_surrogate_state_from_flax`` for a ``MelSurrogate``'s
+``SurrogateState``.
+
 Orbax checkpoint directories need JAX to read; the crossing for weights
 trained there is ``python -m gandes_tpu.cli export-torch --model gandes``
 (or ``--model mmgan``), whose ``.pt`` loads here directly.
@@ -37,6 +43,8 @@ import numpy as np
 import torch
 
 from gandes_tpu_torch.train.checkpoint import load_optimizer_state, optimizer_state
+from gandes_tpu_torch.train.gandes_loop import init_state_for_config as init_gandes_state_for_config
+from gandes_tpu_torch.train.gandes_loop import init_surrogate_for_config
 from gandes_tpu_torch.train.mmgan_loop import init_state_for_config
 
 
@@ -89,6 +97,20 @@ def mmgan_state_dict_from_flax(g_params, g_stats, d_params) -> dict:
     return sd
 
 
+def _load_adam_from_optax(opt: torch.optim.Adam, adam, names: dict, moments: list) -> None:
+    """Load an optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) into
+    ``opt``, in the device-neutral form a checkpoint holds
+    (``train/checkpoint.py::optimizer_state``): ``names`` maps each param's
+    id to its name, ``moments`` holds ``mu`` and ``nu`` as state dicts keyed
+    by those names (the weights' axis permutations applied)."""
+    sd = optimizer_state(opt)
+    sd["state"] = {i: {"step": torch.tensor(float(adam.count)),
+                       "exp_avg": moments[0][names[id(p)]],
+                       "exp_avg_sq": moments[1][names[id(p)]]}
+                   for i, p in enumerate(opt.param_groups[0]["params"])}
+    load_optimizer_state(opt, sd)
+
+
 def mmgan_train_state_from_flax(state, cfg):
     """A JAX MM-GAN ``GANState`` (``jax.device_get``'s numpy leaves) as this
     package's ``GANState`` on the CPU, at ``cfg``'s widths: model weights and
@@ -103,26 +125,77 @@ def mmgan_train_state_from_flax(state, cfg):
     model = port.model
     model.load_state_dict(
         mmgan_state_dict_from_flax(state.g_params, state.g_stats, state.d_params), strict=True)
-
-    def adam_state_dict(opt, opt_state, g_side):
-        adam = opt_state[0]
-        moments = []
-        for tree in (adam.mu, adam.nu):  # the same trees as the params
-            if g_side:
-                sd = mmgan_state_dict_from_flax(tree, state.g_stats, state.d_params)
-            else:
-                sd = mmgan_state_dict_from_flax(state.g_params, state.g_stats, tree)
-            moments.append(sd)
-        names = {id(p): name for name, p in model.named_parameters()}
-        sd = optimizer_state(opt)
-        params = opt.param_groups[0]["params"]
-        sd["state"] = {i: {"step": torch.tensor(float(adam.count)),
-                           "exp_avg": moments[0][names[id(p)]],
-                           "exp_avg_sq": moments[1][names[id(p)]]}
-                       for i, p in enumerate(params)}
-        return sd
-
-    load_optimizer_state(port.g_opt, adam_state_dict(port.g_opt, state.g_opt, True))
-    load_optimizer_state(port.d_opt, adam_state_dict(port.d_opt, state.d_opt, False))
+    names = {id(p): name for name, p in model.named_parameters()}
+    adam = state.g_opt[0]
+    _load_adam_from_optax(port.g_opt, adam, names, [
+        mmgan_state_dict_from_flax(t, state.g_stats, state.d_params) for t in (adam.mu, adam.nu)])
+    adam = state.d_opt[0]
+    _load_adam_from_optax(port.d_opt, adam, names, [
+        mmgan_state_dict_from_flax(state.g_params, state.g_stats, t) for t in (adam.mu, adam.nu)])
     port.step = int(state.step)
+    return port
+
+
+def mel_disc_state_dict_from_flax(d_params, mel_shape=(128, 216)) -> dict:
+    """A JAX ``MelDiscriminator``'s params as this package's ``state_dict``;
+    ``Dense_0`` follows an NHWC flatten and ``fc1`` an NCHW one, so its input
+    axis is permuted from (h, w, c) to (c, h, w) order (the reverse of
+    ``gandes_tpu/train/torch_import.py::_flatten_linear_nchw_to_nhwc``)."""
+    sd = {}
+    for i, name in enumerate(["conv1", "conv2"]):
+        k = np.asarray(d_params[f"Conv_{i}"]["kernel"])  # (kh, kw, in, out)
+        sd[f"{name}.weight"] = _t(k.transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = _t(d_params[f"Conv_{i}"]["bias"])
+    k = np.asarray(d_params["Dense_0"]["kernel"])  # (h*w*c, out)
+    c, h, w = 32, (mel_shape[0] + 1) // 2 // 2, (mel_shape[1] + 1) // 2 // 2
+    out = k.shape[1]
+    sd["fc1.weight"] = _t(k.reshape(h, w, c, out).transpose(3, 2, 0, 1).reshape(out, c * h * w))
+    sd["fc1.bias"] = _t(d_params["Dense_0"]["bias"])
+    sd["fc2.weight"] = _t(np.asarray(d_params["Dense_1"]["kernel"]).T)
+    sd["fc2.bias"] = _t(d_params["Dense_1"]["bias"])
+    return sd
+
+
+def gandes_train_state_from_flax(state, cfg):
+    """A JAX GAN-DES ``GANState`` (numpy leaves) as this package's
+    ``GanDesState`` on the CPU at ``cfg``'s widths: the DCGAN's weights and
+    BN stats, D's weights, ``step``, and both optax ``adam`` states as
+    device-neutral Adam ``state_dict``s (learning rates ``cfg.lr`` /
+    ``cfg.d_lr``)."""
+    port = init_gandes_state_for_config(cfg, device="cpu")
+    port.gen.load_state_dict(dcgan_state_dict_from_flax(state.g_params, state.g_stats),
+                             strict=True)
+    port.disc.load_state_dict(mel_disc_state_dict_from_flax(state.d_params, cfg.mel_shape),
+                              strict=True)
+    adam = state.g_opt[0]
+    _load_adam_from_optax(port.g_opt, adam, {id(p): n for n, p in port.gen.named_parameters()},
+                          [dcgan_state_dict_from_flax(t, state.g_stats)
+                           for t in (adam.mu, adam.nu)])
+    adam = state.d_opt[0]
+    _load_adam_from_optax(port.d_opt, adam, {id(p): n for n, p in port.disc.named_parameters()},
+                          [mel_disc_state_dict_from_flax(t, cfg.mel_shape)
+                           for t in (adam.mu, adam.nu)])
+    port.step = int(state.step)
+    return port
+
+
+def mel_surrogate_state_dict_from_flax(params) -> dict:
+    """A JAX ``MelSurrogate``'s params (``Dense_0..2``) as ``fc1..fc3``."""
+    sd = {}
+    for i in range(3):
+        sd[f"fc{i + 1}.weight"] = _t(np.asarray(params[f"Dense_{i}"]["kernel"]).T)
+        sd[f"fc{i + 1}.bias"] = _t(params[f"Dense_{i}"]["bias"])
+    return sd
+
+
+def mel_surrogate_state_from_flax(s_state, cfg):
+    """A JAX ``SurrogateState`` of a ``MelSurrogate`` (numpy leaves) as this
+    package's ``SurrogateState`` on the CPU: weights, ``step`` and the optax
+    ``adam`` state (learning rate ``cfg.surrogate_lr``)."""
+    port = init_surrogate_for_config(cfg, device="cpu")
+    port.model.load_state_dict(mel_surrogate_state_dict_from_flax(s_state.params), strict=True)
+    adam = s_state.opt[0]
+    _load_adam_from_optax(port.opt, adam, {id(p): n for n, p in port.model.named_parameters()},
+                          [mel_surrogate_state_dict_from_flax(t) for t in (adam.mu, adam.nu)])
+    port.step = int(s_state.step)
     return port

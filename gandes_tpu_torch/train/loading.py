@@ -2,7 +2,8 @@
 ``gandes_tpu/train/loading.py``).
 
 ``--torch-checkpoint`` takes a reference-layout ``state_dict``: for GAN-DES
-the reference's own ``gen_*.pt``, for MM-GAN its ``mmgan_*_epoch_*.pth``, or
+the reference's own ``gen_*.pt`` or a ``train-gandes`` ``gen_{step}_{ts}``
+directory, for MM-GAN its ``mmgan_*_epoch_*.pth``, or
 ``python -m gandes_tpu.cli export-torch --model gandes|mmgan`` output for
 weights trained in the JAX package (its orbax directories need JAX to
 read). Without one the models keep their seeded initialisation, as the JAX
@@ -11,17 +12,24 @@ package's server does without a checkpoint.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from gandes_tpu_torch.models.gan_des import DCGANGenerator
+from gandes_tpu_torch.train.checkpoint import MODEL_FILE
 
 
 def load_gandes_state(cfg, torch_checkpoint: str | None = None, device="cuda"):
     """GAN-DES inference state; returns ``(generator, None)`` — the second
     slot is the training state, which inference does not carry. Without a
-    checkpoint the weights are drawn from seed 0."""
+    checkpoint the weights are drawn from seed 0. ``torch_checkpoint`` is a
+    reference-layout ``.pt``/``.pth`` or a ``gen_{step}_{ts}`` directory of
+    ``train-gandes`` (its ``model.pth``)."""
     gen = DCGANGenerator(noise_dim=cfg.z_dim, generator=torch.Generator().manual_seed(0))
     if torch_checkpoint:
+        if os.path.isdir(torch_checkpoint):
+            torch_checkpoint = os.path.join(torch_checkpoint, MODEL_FILE)
         sd = torch.load(torch_checkpoint, map_location="cpu", weights_only=True)
         gen.load_state_dict(sd, strict=True)
     return gen.to(device).eval(), None

@@ -1,4 +1,6 @@
-"""MM-GAN train steps (port of ``gandes_tpu/train/steps.py``, MM-GAN part).
+"""Train steps of both families (port of ``gandes_tpu/train/steps.py``).
+
+MM-GAN:
 
 * ``gen_forward`` — train-mode G1+G2 forward that updates the BatchNorm
   running statistics and returns the adjacency matrices / parameter vectors
@@ -26,8 +28,15 @@ into one. A step is three parts (``step.lrs``, ``step.body``, the count):
 the learning rates are host values, written into device tensors outside
 the graph before each replay; ``body`` is the device work alone. The eager
 functions stay the plain versions, used on the CPU and by the tests. The
-surrogate and reinforce steps and the GAN-DES steps are not ported yet
-(``ROADMAP.md`` Queue 1 items 4-5).
+MM-GAN surrogate and reinforce steps are not ported yet (``ROADMAP.md``
+Queue 1 item 4).
+
+GAN-DES (``gandes_tpu/train/steps.py:702-866``): ``make_gandes_gen_forward``
+and three eager steps, one per ``g_update`` mode (``none``, ``surrogate``,
+``reinforce``), each updating a ``GanDesState`` in place under
+``CUDNN_TRAIN_FLAGS``. Their learning rates are constant (``optax.adam(lr,
+b1=0.5)``), so the steps set none. They are not captured as CUDA graphs: the
+loop's batches vary in size (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from gandes_tpu_torch.models.composite import MultiModalGAN
-from gandes_tpu_torch.train.losses import bce_with_logits
+from gandes_tpu_torch.models.gan_des import DCGANGenerator, MelDiscriminator
+from gandes_tpu_torch.train.losses import GAN_DES_FAKE_LABEL, GAN_DES_REAL_LABEL, bce_with_logits
 
 # optax.adam's defaults
 ADAM_BETAS = (0.9, 0.999)
@@ -79,16 +89,16 @@ def g_parameters(model: MultiModalGAN) -> list:
     return [*model.generator1.parameters(), *model.generator2.parameters()]
 
 
-def _adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
-    """optax.adam's betas and eps. On CUDA the Adam is capturable: its step
-    counts live on the card and its learning rate is a float32 device
-    tensor, so a CUDA graph can hold the update. Capturable Adam does not
-    run on the CPU, where the Adam keeps ``capturable=False`` and a float
-    learning rate."""
+def _adam(params, lr: float, device: torch.device, betas=ADAM_BETAS) -> torch.optim.Adam:
+    """optax.adam's eps and (default) betas. On CUDA the Adam is capturable:
+    its step counts live on the card and its learning rate is a float32
+    device tensor, so a CUDA graph can hold the update. Capturable Adam does
+    not run on the CPU, where the Adam keeps ``capturable=False`` and a
+    float learning rate."""
     if device.type == "cuda":
-        return torch.optim.Adam(params, lr=torch.tensor(lr, device=device), betas=ADAM_BETAS,
+        return torch.optim.Adam(params, lr=torch.tensor(lr, device=device), betas=betas,
                                 eps=ADAM_EPS, capturable=True)
-    return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+    return torch.optim.Adam(params, lr=lr, betas=betas, eps=ADAM_EPS)
 
 
 def init_mmgan_state(model: MultiModalGAN, g_sched: Callable, d_sched: Callable) -> GANState:
@@ -403,3 +413,177 @@ def make_scanned_steps(step_fn: Callable, K: int, n_carry: int = 1):
         return state, {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
     return scanned
+
+
+# ---------------------------------------------------------------- GAN-DES
+
+# the GAN-DES loop's optax.adam(lr, b1=0.5, b2=0.999), the reference's
+# Adam(betas=(0.5, 0.999)) for G and D
+GANDES_ADAM_BETAS = (0.5, 0.999)
+
+# mel-dB spectrograms span ~[-80, 0]; normalise the surrogate regression
+# residual so the MSE is O(1)
+MEL_SCALE = 40.0
+
+
+@dataclass
+class GanDesState:
+    """All mutable training state of one GAN-DES: the DCGAN (params and
+    BatchNorm statistics), the mel discriminator, both Adams, and the number
+    of steps taken."""
+
+    gen: DCGANGenerator
+    disc: MelDiscriminator
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+    step: int = 0
+
+
+@dataclass
+class SurrogateState:
+    """Mutable state of a learned DES surrogate: the model, its Adam and the
+    number of regression steps taken."""
+
+    model: torch.nn.Module
+    opt: torch.optim.Adam
+    step: int = 0
+
+
+def init_gandes_state(gen: DCGANGenerator, disc: MelDiscriminator, lr: float,
+                      d_lr: float | None = None) -> GanDesState:
+    """Both Adams (betas (0.5, 0.999), see :func:`_adam`); D's learning rate
+    is ``d_lr`` where given."""
+    device = next(gen.parameters()).device
+    return GanDesState(gen=gen, disc=disc,
+                       g_opt=_adam(gen.parameters(), lr, device, GANDES_ADAM_BETAS),
+                       d_opt=_adam(disc.parameters(), lr if d_lr is None else d_lr, device,
+                                   GANDES_ADAM_BETAS))
+
+
+def init_surrogate_state(model: torch.nn.Module, lr: float) -> SurrogateState:
+    """The surrogate's Adam: ``optax.adam(lr)``'s default betas."""
+    return SurrogateState(model=model, opt=_adam(model.parameters(), lr,
+                                                 next(model.parameters()).device))
+
+
+def make_gandes_gen_forward():
+    """Train-mode DCGAN forward that updates the BatchNorm running
+    statistics: ``forward(state, noise) -> mats`` (B, 20, 20). It runs under
+    ``CUDNN_TRAIN_FLAGS``: cuDNN may otherwise pick a transposed-convolution
+    (backward-data) algorithm that sums with atomics, and the host decode
+    takes ``int(x * 126)`` of the matrices, so a last-bit difference can
+    change a clip."""
+
+    def forward(state: GanDesState, noise):
+        gen = state.gen.train()
+        with torch.no_grad(), torch.backends.cudnn.flags(**CUDNN_TRAIN_FLAGS):
+            return gen(noise)
+
+    return forward
+
+
+def _gandes_d_update(state: GanDesState, real_mel, fake_mel) -> torch.Tensor:
+    """D's loss, its gradients and D's Adam step; returns the loss. The
+    reference's 0.9/0.1 label smoothing goes through BCE-with-logits over
+    D's already-sigmoided outputs (the double squash, `SIMNN.py:283-316`)."""
+    d_params = list(state.disc.parameters())
+    d_loss = (bce_with_logits(state.disc(real_mel).reshape(-1), GAN_DES_REAL_LABEL)
+              + bce_with_logits(state.disc(fake_mel).reshape(-1), GAN_DES_FAKE_LABEL))
+    _adam_step(state.d_opt, d_params, torch.autograd.grad(d_loss, d_params))
+    return d_loss.detach()
+
+
+def make_gandes_train_step():
+    """``g_update='none'``: ``train_step(state, real_mel, fake_mel) -> (state,
+    metrics)``, the D update and the post-update G loss; G's Adam steps on
+    zero gradients (faithful to the reference's detach, `SIMNN.py:299`), so
+    its state advances and G's params stay bit for bit."""
+
+    def train_step(state: GanDesState, real_mel, fake_mel):
+        with torch.backends.cudnn.flags(**CUDNN_TRAIN_FLAGS):
+            d_loss = _gandes_d_update(state, real_mel, fake_mel)
+            with torch.no_grad():
+                g_loss = bce_with_logits(state.disc(fake_mel).squeeze(), 1.0)
+            g_params = list(state.gen.parameters())
+            _adam_step(state.g_opt, g_params, [torch.zeros_like(p) for p in g_params])
+        state.step += 1
+        return state, {"d_loss": d_loss, "g_loss": g_loss.detach()}
+
+    return train_step
+
+
+def surrogate_g_loss_and_grads(state: GanDesState, s_model: torch.nn.Module, fake_mel, noise):
+    """``g_update='surrogate'``'s G loss, BCE(D(proxy), real) under the
+    state's current D, and its gradients w.r.t. G's parameters. G re-runs in
+    train mode without touching its BatchNorm statistics; the proxy's value
+    is the pipeline's ``fake_mel`` bit for bit and its gradient the
+    surrogate's (``s_model`` only carries it: its own params get none):
+
+        proxy = fake_mel + (s_mel - s_mel.detach())
+    """
+    gen = state.gen.train()
+    s_mel = s_model(gen(noise, update_stats=False))
+    proxy = fake_mel + (s_mel - s_mel.detach())
+    g_loss = bce_with_logits(state.disc(proxy).squeeze(), 1.0)
+    return g_loss, torch.autograd.grad(g_loss, list(gen.parameters()))
+
+
+def make_gandes_train_step_surrogate():
+    """``g_update='surrogate'``: ``train_step(state, s_state, real_mel,
+    fake_mel, mats, noise) -> (state, s_state, metrics)``. The D update; one
+    regression step of the surrogate from the matrices ``mats`` that G gave
+    the pipeline to the pipeline's ``fake_mel``; then G's step through the
+    just-updated surrogate (:func:`surrogate_g_loss_and_grads`)."""
+
+    def train_step(state: GanDesState, s_state: SurrogateState, real_mel, fake_mel, mats, noise):
+        with torch.backends.cudnn.flags(**CUDNN_TRAIN_FLAGS):
+            d_loss = _gandes_d_update(state, real_mel, fake_mel)
+            s_params = list(s_state.model.parameters())
+            s_loss = torch.mean(((s_state.model(mats.detach()) - fake_mel) / MEL_SCALE) ** 2)
+            _adam_step(s_state.opt, s_params, torch.autograd.grad(s_loss, s_params))
+            s_state.step += 1
+            g_loss, g_grads = surrogate_g_loss_and_grads(state, s_state.model, fake_mel, noise)
+            _adam_step(state.g_opt, list(state.gen.parameters()), g_grads)
+        state.step += 1
+        return state, s_state, {"d_loss": d_loss, "g_loss": g_loss.detach(),
+                                "s_loss": s_loss.detach()}
+
+    return train_step
+
+
+def reinforce_g_loss_and_grads(state: GanDesState, fake_mel, mats_s, noise, sigma: float):
+    """``g_update='reinforce'``'s G loss under the state's current D, its
+    gradients w.r.t. G's parameters, and the batch-mean reward. The pipeline
+    consumed ``mats_s``, a sample of N(G(z), sigma^2); the reward
+    log D(fake_mel) (D's output is already a probability) weights the
+    Gaussian log-density of that sample under G's differentiable means
+    (train mode, BatchNorm statistics untouched). Advantages are
+    batch-standardised with the population std, as ``jnp.std`` takes it
+    (``torch.std`` defaults to ``correction=1``)."""
+    with torch.no_grad():
+        reward = torch.log(state.disc(fake_mel).reshape(-1).clamp(1e-7, 1.0))
+        advantage = (reward - reward.mean()) / (reward.std(correction=0) + 1e-6)
+    mu = state.gen.train()(noise, update_stats=False)
+    logprob = -torch.sum((mats_s.detach() - mu) ** 2, dim=(1, 2)) * (1.0 / (2.0 * sigma * sigma))
+    g_loss = -torch.mean(advantage * logprob)
+    return g_loss, torch.autograd.grad(g_loss, list(state.gen.parameters())), reward.mean()
+
+
+def make_gandes_train_step_reinforce(sigma: float = 0.05):
+    """``g_update='reinforce'``: ``train_step(state, real_mel, fake_mel,
+    mats_s, noise) -> (state, metrics)``, the D update then G's
+    score-function step (:func:`reinforce_g_loss_and_grads`) through the
+    updated D; ``metrics['reward']`` is the batch-mean reward."""
+    if not sigma > 0:
+        raise ValueError(f"reinforce sigma must be > 0, got {sigma}")
+
+    def train_step(state: GanDesState, real_mel, fake_mel, mats_s, noise):
+        with torch.backends.cudnn.flags(**CUDNN_TRAIN_FLAGS):
+            d_loss = _gandes_d_update(state, real_mel, fake_mel)
+            g_loss, g_grads, reward = reinforce_g_loss_and_grads(state, fake_mel, mats_s, noise,
+                                                                 sigma)
+            _adam_step(state.g_opt, list(state.gen.parameters()), g_grads)
+        state.step += 1
+        return state, {"d_loss": d_loss, "g_loss": g_loss.detach(), "reward": reward}
+
+    return train_step

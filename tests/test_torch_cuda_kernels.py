@@ -467,3 +467,143 @@ def test_matrix_to_wav_parallel_launches_k2_once_per_clip(cuda, tmp_path):
         above = cpu[i] > cpu[i].min() + 10.0
         torch.testing.assert_close(card[i][above], cpu[i][above], rtol=0, atol=0.05)
         torch.testing.assert_close(card[i], cpu[i], rtol=0, atol=0.2)
+
+
+# ------------------------------------------------------------ GAN-DES training
+
+
+def _gandes_inputs(seed=0, batch=8):
+    """Real and fake mel batches at mel-dB scale (the second fake at a tenth of
+    it, so the reinforce rewards differ), noise, and matrices in [0, 1)."""
+    rng = np.random.RandomState(seed)
+    real, fake = (rng.rand(batch, 128, 216).astype(np.float32) * 80 - 80 for _ in range(2))
+    fake[1] /= 10.0
+    noise = rng.randn(batch, 100).astype(np.float32)
+    return [torch.from_numpy(a) for a in (real, fake, noise,
+                                          rng.rand(batch, 20, 20).astype(np.float32))]
+
+
+def _gandes_steps(device, mode, n=2):
+    """``n`` steps of ``mode`` from the seed-0 state on ``device``; returns the
+    state, the surrogate state (or None) and the metrics."""
+    from gandes_tpu_torch.train import gandes_loop, steps
+
+    cfg = gandes_loop.GanDesConfig()
+    state = gandes_loop.init_state_for_config(cfg, device)
+    s_state = gandes_loop.init_surrogate_for_config(cfg, device) if mode == "surrogate" else None
+    step = {"none": steps.make_gandes_train_step(),
+            "surrogate": steps.make_gandes_train_step_surrogate(),
+            "reinforce": steps.make_gandes_train_step_reinforce(cfg.reinforce_sigma)}[mode]
+    metrics = []
+    for i in range(n):
+        real, fake, noise, mats = (a.to(device) for a in _gandes_inputs(seed=i))
+        if mode == "surrogate":
+            state, s_state, m = step(state, s_state, real, fake, mats, noise)
+        elif mode == "reinforce":
+            state, m = step(state, real, fake, mats, noise)
+        else:
+            state, m = step(state, real, fake)
+        metrics.append(m)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return state, s_state, metrics
+
+
+def _modules_equal(a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "surrogate", "reinforce"])
+def test_gandes_steps_on_card_repeat_and_match_cpu(cuda, mode):
+    """Two GAN-DES steps of each mode at GanDesConfig() width (B = 8) on the
+    card, twice: bitwise equal (deterministic cuDNN under
+    ``CUDNN_TRAIN_FLAGS``, including the DCGAN's convT backward in the
+    surrogate and reinforce modes); the first step's losses against the CPU
+    at rtol 1e-4 (the Adams differ: capturable on the card)."""
+    a, sa, ma = _gandes_steps(cuda, mode)
+    b, sb, mb = _gandes_steps(cuda, mode)
+    assert _modules_equal(a.gen, b.gen) and _modules_equal(a.disc, b.disc)
+    assert all(torch.equal(x[k], y[k]) for x, y in zip(ma, mb) for k in x)
+    if sa is not None:
+        assert _modules_equal(sa.model, sb.model) and sa.step == sb.step == 2
+    assert a.d_opt.param_groups[0]["capturable"] and a.step == 2
+    assert all(st["exp_avg"].is_cuda for st in a.g_opt.state.values())
+    _, _, mc = _gandes_steps(torch.device("cpu"), mode, n=1)
+    for k in mc[0]:  # G's post-update losses differ by the Adams' rounding
+        if k in ("d_loss", "s_loss") or mode == "none":
+            assert float(ma[0][k]) == pytest.approx(float(mc[0][k]), rel=1e-4), k
+
+
+@pytest.mark.cuda
+def test_gandes_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
+    """A surrogate-mode state trained on the card saves device-neutral and
+    restores into CPU templates bit for bit (the companion too)."""
+    from gandes_tpu_torch.train import checkpoint as ckpt
+    from gandes_tpu_torch.train import gandes_loop
+
+    state, s_state, _ = _gandes_steps(cuda, "surrogate")
+    path = ckpt.save_gandes_state(str(tmp_path / "gen_2_1.0"), state)
+    ckpt.save_surrogate_state(path + "_surrogate", s_state)
+    cfg = gandes_loop.GanDesConfig()
+    cpu = ckpt.restore_gandes_state(path, gandes_loop.init_state_for_config(cfg, "cpu"))
+    cpu_s = ckpt.restore_surrogate_state(path + "_surrogate",
+                                         gandes_loop.init_surrogate_for_config(cfg, "cpu"))
+    assert cpu.step == 2 and cpu_s.step == 2 and not cpu.d_opt.param_groups[0]["capturable"]
+    assert _modules_equal(cpu.gen, state.gen) and _modules_equal(cpu.disc, state.disc)
+    assert _modules_equal(cpu_s.model, s_state.model)
+    for oa, ob in ((cpu.g_opt, state.g_opt), (cpu.d_opt, state.d_opt), (cpu_s.opt, s_state.opt)):
+        assert float(oa.param_groups[0]["lr"]) == pytest.approx(float(ob.param_groups[0]["lr"]))
+        for pa, pb in zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"]):
+            assert all(torch.equal(oa.state[pa][k], ob.state[pb][k].cpu())
+                       for k in ("step", "exp_avg", "exp_avg_sq"))
+
+
+def _write_midi(path, seconds=22.0, rate=8.0, seed=0):
+    """One piano MIDI file of ``seconds`` of Poisson onsets (the port's
+    writer)."""
+    from gandes_tpu_torch.music.midi import Message, MetaMessage, MidiFile, MidiTrack
+
+    rng = np.random.RandomState(seed)
+    n = rng.poisson(rate * seconds)
+    on = np.sort(rng.uniform(0.0, seconds, n))
+    ticks = np.round(np.concatenate([on, on + 0.3]) * 960).astype(np.int64)  # 480 tpb, 120 bpm
+    is_on = np.concatenate([np.ones(n, bool), np.zeros(n, bool)])
+    pitch = rng.randint(40, 90, n)
+    track = MidiTrack()
+    track.append(MetaMessage("set_tempo", tempo=500000, time=0))
+    prev = 0
+    for k in np.lexsort((is_on, ticks)):
+        i = k % n
+        track.append(Message("note_on" if is_on[k] else "note_off", note=int(pitch[i]),
+                             velocity=80 if is_on[k] else 0, time=int(ticks[k] - prev)))
+        prev = ticks[k]
+    mid = MidiFile(ticks_per_beat=480)
+    mid.tracks.append(track)
+    mid.save(str(path))
+
+
+@pytest.mark.cuda
+def test_gandes_dataset_takes_each_slice_on_the_card(cuda, tmp_path):
+    """``MaestroDatasetGanDes`` on a 22 s file: the render stays on the card
+    and each 5 s slice's mel is one K2 launch (5 slices, k = 30); with
+    k = 3, three sampled slices, three launches. The mels within 0.05 dB of
+    the same item on the CPU."""
+    import random
+
+    from gandes_tpu_torch.data.datasets import MaestroDatasetGanDes
+
+    _write_midi(tmp_path / "a.mid")
+    for k, slices in ((30, 5), (3, 3)):
+        ds = MaestroDatasetGanDes(batch_size=k, input_folder=str(tmp_path), device=cuda)
+        launches = mel_power_cuda.launches
+        random.seed(0)
+        mels = ds[0]
+        torch.cuda.synchronize()
+        assert mels.is_cuda and tuple(mels.shape) == (slices, 128, 216)
+        assert mel_power_cuda.launches == launches + slices
+        random.seed(0)
+        cpu = MaestroDatasetGanDes(batch_size=k, input_folder=str(tmp_path), device="cpu")[0]
+        above = cpu > cpu.amin((1, 2), keepdim=True) + 10.0
+        torch.testing.assert_close(mels.cpu()[above], cpu[above], rtol=0, atol=0.05)
