@@ -149,6 +149,32 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               slice's 0.05 dB on every bin); no K1 launch; K2's launches
               equal to the real slices plus 8 fake clips per checkpoint,
               added to the ``kernels`` line's.
+14. sf2     — SF2 sample playback on ``cuda``. A GM-scale font built with
+              the port's ``build_sf2`` (``build_gm_font``: 128 programs x 2
+              key splits x 2 velocity layers of stereo pairs, 1,024 looped
+              samples of 20,000 frames, a 20.5 M-sample bank past 2^24;
+              every program sends to reverb and chorus, a quarter set the
+              static filter, a quarter the LFOs, an eighth the mod-env pitch
+              and filter sweep, one an exclusive class). The eight fixture
+              cases of ``tests/test_sf2_goldens.py`` (``SF2_CASES``) on the
+              card vs the CPU port (atol 2e-5, 1e-4 where an FFT runs,
+              samples past it <= 1e-4 of the clip) and a card repeat
+              bitwise. ``GenerationService(model="gandes", sound_font=...)``
+              at serve width: a warmup, n = 4 requests (``latency_s``, K2
+              launches == 4), one request with each render timed (voices,
+              L, W, toggles, seconds), the busy share and top device ops of
+              one request and of its slowest render (``sf2_profile``); the
+              same 4 generator clips through ``matrix_to_wav`` on the card
+              and on the CPU (sims ending by customer count): mels 0.05 dB
+              above the floor, 0.5 dB on every bin; ``matrix_to_wav(
+              parallel=4)``; ``sim-to-wav --sound-font`` through
+              ``cli.main``; ``train-gandes --sound-font`` at
+              ``GanDesConfig()`` width (B = 30, 2 steps, ``--des-parallel
+              16``) over phase 11's corpus: every fake clip and real file
+              rendered by the font, K2 launches == fake clips + real slices.
+              K2's launches of these paths are added to the ``kernels``
+              line's. ``python3 chip_smoke.py --only sf2`` runs the device,
+              build and sf2 phases alone.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Bounds use the H100 SXM's published
@@ -2131,6 +2157,384 @@ def phase_eval_metrics(work_dir, mmgan_models, gandes_state):
     return launches
 
 
+# ------------------------------------------------------------------ sf2
+
+# The eight fixture cases of tests/test_sf2_goldens.py, written out again
+# (that file imports JAX; tests/test_torch_sf2.py checks that these build the
+# same font bytes and play the same notes).
+SF2_SR = 22050
+
+
+def _sf2():
+    from gandes_tpu_torch.music import sf2
+
+    return sf2
+
+
+def _sine(n, period, amp=0.5):
+    import numpy as np
+
+    return (amp * np.sin(2 * np.pi * np.arange(n) / period)).astype(np.float32)
+
+
+def _noise(n, seed=0, amp=0.4):
+    import numpy as np
+
+    return (np.random.RandomState(seed).randn(n) * amp / 3).astype(np.float32)
+
+
+def _one_zone_font(path, sample, gens):
+    """One looped sample in one instrument zone of preset 0."""
+    name, data, loop_start, loop_end = sample
+    _sf2().build_sf2(path, samples=[{"name": name, "data": data, "sample_rate": SF2_SR,
+                                     "original_pitch": 60, "loop_start": loop_start,
+                                     "loop_end": loop_end}],
+                     instruments=[{"name": "i", "zones": [{"sample": 0, "gens": gens}]}],
+                     presets=[{"name": "p", "program": 0, "zones": [{"instrument": 0}]}])
+
+
+def _sine_loop():
+    return ("s", _sine(2000, 50), 200, 1800)
+
+
+def _gens(**kw):
+    """Generator amounts by their ``G_*`` names, in the order given."""
+    m = _sf2()
+    return {getattr(m, "G_" + k): v for k, v in kw.items()}
+
+
+def _font_layers_excl(path):
+    """Velocity-split zones, a pitched-up layer and an exclusiveClass choke."""
+    _sf2().build_sf2(path, samples=[
+        {"name": "a", "data": _sine(1500, 40, 0.4), "sample_rate": SF2_SR,
+         "original_pitch": 72},
+        {"name": "b", "data": _sine(1500, 64, 0.4), "sample_rate": SF2_SR,
+         "original_pitch": 60},
+    ], instruments=[{"name": "i", "zones": [
+        {"sample": 0, "vel_lo": 0, "vel_hi": 63,
+         "gens": _gens(HOLD_VOL=2786, EXCLUSIVE_CLASS=1)},
+        {"sample": 1, "vel_lo": 64, "vel_hi": 127,
+         "gens": _gens(HOLD_VOL=2786, EXCLUSIVE_CLASS=1)},
+    ]}], presets=[{"name": "p", "program": 0, "zones": [{"instrument": 0}]}])
+
+
+SF2_CASES = {
+    "plain_loop": (lambda p: _one_zone_font(p, _sine_loop(), _gens(
+        SAMPLE_MODES=1, HOLD_VOL=2786)), [(60, 100, 0.0, 0.5)]),
+    "dahdsr": (lambda p: _one_zone_font(p, _sine_loop(), _gens(
+        SAMPLE_MODES=1, ATTACK_VOL=-2000, HOLD_VOL=-3000, DECAY_VOL=-1000, SUSTAIN_VOL=200,
+        RELEASE_VOL=-1500)), [(60, 100, 0.0, 0.6), (67, 64, 0.2, 0.8)]),
+    "filter_q": (lambda p: _one_zone_font(p, ("n", _noise(4000), 400, 3600), _gens(
+        SAMPLE_MODES=1, HOLD_VOL=2786, INITIAL_FILTER_FC=7000, INITIAL_FILTER_Q=300)),
+        [(60, 100, 0.0, 0.7)]),
+    "lfos_pan": (lambda p: _one_zone_font(p, _sine_loop(), _gens(
+        SAMPLE_MODES=1, HOLD_VOL=2786, VIB_LFO_TO_PITCH=80, DELAY_VIB_LFO=-1200,
+        MOD_LFO_TO_VOL=80, PAN=350)), [(60, 100, 0.0, 0.9)]),
+    "modenv_sweeps": (lambda p: _one_zone_font(p, ("n", _noise(4000, seed=1), 400, 3600), _gens(
+        SAMPLE_MODES=1, HOLD_VOL=2786, MOD_ENV_TO_PITCH=400, DECAY_MOD_ENV=-1500,
+        INITIAL_FILTER_FC=6000, MOD_ENV_TO_FILTER_FC=2400, MOD_LFO_TO_FILTER_FC=600)),
+        [(60, 100, 0.0, 0.8)]),
+    "effects_sends": (lambda p: _one_zone_font(p, _sine_loop(), _gens(
+        SAMPLE_MODES=1, HOLD_VOL=2786, REVERB_SEND=500, CHORUS_SEND=400)),
+        [(60, 100, 0.0, 0.4)]),
+    "layers_exclusive": (_font_layers_excl,
+                         [(60, 40, 0.0, 0.5), (60, 100, 0.25, 0.7), (64, 100, 0.5, 0.9)]),
+    "full_matrix": (lambda p: _one_zone_font(p, _sine_loop(), _gens(
+        SAMPLE_MODES=1, HOLD_VOL=1200, ATTACK_VOL=-6000, RELEASE_VOL=-3000, PAN=200,
+        INITIAL_FILTER_FC=9000, INITIAL_FILTER_Q=200, VIB_LFO_TO_PITCH=50, MOD_LFO_TO_VOL=60,
+        MOD_ENV_TO_PITCH=300, DECAY_MOD_ENV=-2000, MOD_ENV_TO_FILTER_FC=1200,
+        MOD_LFO_TO_FILTER_FC=600, REVERB_SEND=300, CHORUS_SEND=300)),
+        [(60, 100, 0.0, 0.4), (67, 80, 0.1, 0.5)]),
+}
+
+
+def _sf2_midi(notes, program=None):
+    """tests/test_sf2_goldens.py's MIDI builder: notes (key, vel, on_s,
+    off_s); 1 tick = 1/960 s at the set tempo."""
+    from gandes_tpu_torch.music.midi import Message, MetaMessage, MidiFile, MidiTrack
+
+    mid = MidiFile(type=0, ticks_per_beat=480)
+    tr = MidiTrack()
+    tr.append(MetaMessage("set_tempo", tempo=500000, time=0))
+    events = []
+    if program is not None:
+        events.append((0.0, Message("program_change", program=program)))
+    for key, vel, on, off in notes:
+        events.append((on, Message("note_on", note=key, velocity=vel)))
+        events.append((off, Message("note_off", note=key, velocity=0)))
+    events.sort(key=lambda e: e[0])
+    t_prev = 0.0
+    for t, msg in events:
+        msg.time = int(round((t - t_prev) * 960))
+        tr.append(msg)
+        t_prev = t_prev + msg.time / 960.0
+    tr.append(MetaMessage("end_of_track", time=0))
+    mid.tracks.append(tr)
+    return mid
+
+
+def build_gm_font(path, frames=20000, sr=44100):
+    """A GM-scale font: 128 programs, each 2 key splits x 2 velocity layers
+    of stereo sample pairs (1,024 looped samples of ``frames`` frames, a
+    bank of 20.5 M samples, past 2^24 as FluidR3_GM's ~65 M is). Every
+    program sends to reverb and chorus; programs 1 mod 4 set the static
+    low-pass, 2 mod 4 the LFOs, 3 mod 8 the mod-env pitch and filter sweep;
+    program 115 (a GM woodblock) an exclusive class. Returns the bank's
+    sample count."""
+    import numpy as np
+
+    m = _sf2()
+    t = np.arange(frames)
+    samples, instruments, presets = [], [], []
+    for p in range(128):
+        gens = {m.G_SAMPLE_MODES: 1, m.G_ATTACK_VOL: -7200, m.G_HOLD_VOL: -2400,
+                m.G_DECAY_VOL: 0, m.G_SUSTAIN_VOL: 150, m.G_RELEASE_VOL: -1800,
+                m.G_REVERB_SEND: 150 + p, m.G_CHORUS_SEND: 100}
+        if p % 4 == 1:
+            gens.update({m.G_INITIAL_FILTER_FC: 8000 + 20 * p, m.G_INITIAL_FILTER_Q: 120})
+        if p % 4 == 2:
+            gens.update({m.G_VIB_LFO_TO_PITCH: 25, m.G_DELAY_VIB_LFO: -2000,
+                         m.G_MOD_LFO_TO_VOL: 30, m.G_FREQ_MOD_LFO: -500})
+        if p % 8 == 3:
+            gens.update({m.G_MOD_ENV_TO_PITCH: 80, m.G_DECAY_MOD_ENV: -1800,
+                         m.G_INITIAL_FILTER_FC: 10000, m.G_MOD_ENV_TO_FILTER_FC: 1800})
+        if p == 115:
+            gens[m.G_EXCLUSIVE_CLASS] = 1
+        zones = []
+        for lo, hi, root in ((0, 63, 48), (64, 127, 72)):
+            period = sr / (440.0 * 2.0 ** ((root - 69) / 12.0))
+            for layer, (vlo, vhi) in enumerate(((0, 79), (80, 127))):
+                for side, pan in (("L", -300), ("R", 300)):
+                    phase = 0.0 if side == "L" else 0.25
+                    wave = sum(np.sin(2 * np.pi * h * (t / period + phase)) / h ** (2 - layer)
+                               for h in (1, 2, 3, 5))
+                    samples.append({"name": f"p{p}k{root}v{layer}{side}",
+                                    "data": (0.3 * wave).astype(np.float32), "sample_rate": sr,
+                                    "original_pitch": root, "loop_start": 2000,
+                                    "loop_end": frames - 1000})
+                    zones.append({"sample": len(samples) - 1, "key_lo": lo, "key_hi": hi,
+                                  "vel_lo": vlo, "vel_hi": vhi,
+                                  "gens": {**gens, m.G_PAN: pan}})
+        instruments.append({"name": f"inst{p}", "zones": zones})
+        presets.append({"name": f"prog{p}", "program": p, "zones": [{"instrument": p}]})
+    m.build_sf2(path, samples=samples, instruments=instruments, presets=presets, name="gm-scale")
+    return len(samples) * (frames + 46)
+
+
+def _sf2_uses_fft(cols, nv) -> bool:
+    return any(cols["fc_hz"][i] > 0.0 or cols["menv_fc"][i] != 0.0 or cols["lfo_fc"][i] != 0.0
+               or cols["rev_send"][i] != 0.0 for i in range(nv))
+
+
+def _mel_gap(spec, ref):
+    """Largest dB gap on bins more than 10 dB above the floor, on every bin."""
+    above = max(float((spec[i] - ref[i]).abs()[ref[i] > ref[i].min() + 10.0].max())
+                for i in range(len(ref)))
+    return above, float((spec - ref).abs().max())
+
+
+def phase_sf2(work_dir):
+    """SF2 sample playback on the card (see the module docstring). Returns
+    K2's launches on the phase's main paths."""
+    import numpy as np
+    import torch
+
+    from gandes_tpu_torch import cli
+    from gandes_tpu_torch.bridge.gandes_decode import matrix_to_wav
+    from gandes_tpu_torch.data import datasets
+    from gandes_tpu_torch.music import sf2, synth
+    from gandes_tpu_torch.ops.mel_power import mel_power_cuda
+    from gandes_tpu_torch.serve import GenerationService
+    from gandes_tpu_torch.train.gandes_loop import GanDesConfig
+    from gandes_tpu_torch.train.loading import gandes_eval_forward, load_gandes_state
+
+    t_phase = time.perf_counter()
+    d = os.path.join(work_dir, "sf2")
+    os.makedirs(d)
+    failures = []
+    font = os.path.join(d, "gm.sf2")
+    t = time.perf_counter()
+    bank_samples = build_gm_font(font)
+    font_build_s = time.perf_counter() - t
+    _sync()
+    t = time.perf_counter()
+    card_synth = synth._get_sf2_synth(font, device=DEVICE)
+    _sync()
+    font_load_s = time.perf_counter() - t
+    if card_synth.bank.numel() != bank_samples or bank_samples <= 1 << 24:
+        failures.append(f"bank {card_synth.bank.numel()} samples, expected {bank_samples}")
+    t = time.perf_counter()
+    torch.from_numpy(card_synth.font.bank).to(DEVICE)
+    _sync()
+    upload_s = time.perf_counter() - t
+
+    # 1. the golden fixture cases: card vs the CPU port, and a card repeat
+    cases = {}
+    for name, (build, notes) in SF2_CASES.items():
+        path = os.path.join(d, name + ".sf2")
+        build(path)
+        mid = _sf2_midi(notes)
+        card, cpu = sf2.Sf2Synth(path, device=DEVICE), sf2.Sf2Synth(path, device="cpu")
+        a = card.render_midi(mid, sr=SF2_SR, min_seconds=1.0)
+        b = card.render_midi(mid, sr=SF2_SR, min_seconds=1.0)
+        c = cpu.render_midi(mid, sr=SF2_SR, min_seconds=1.0)
+        cols, nv, _ = cpu.midi_to_voices(mid, SF2_SR)
+        atol = 1e-4 if _sf2_uses_fft(cols, nv) else 2e-5
+        err = float(np.abs(a - c).max()) if a.shape == c.shape else math.inf
+        flips = int(np.count_nonzero(np.abs(a - c) > atol)) if a.shape == c.shape else a.size
+        cases[name] = {"atol": atol, "max_abs_err": err, "past_atol": flips,
+                       "repeat_bitwise": bool(np.array_equal(a, b))}
+        if flips > 1e-4 * a.size or not cases[name]["repeat_bitwise"] or not np.isfinite(a).all():
+            failures.append(f"case {name}: {cases[name]}")
+
+    # 2. GAN-DES requests through the font at serve width
+    service = GenerationService(model="gandes", sound_font=font, device=DEVICE)
+    t = time.perf_counter()
+    service.generate(n=1, seed=0)
+    warmup_s = time.perf_counter() - t
+    mel_power_cuda.launches = 0
+    out = service.generate(n=4, seed=0)
+    request_launches = mel_power_cuda.launches
+    if request_launches != 4 or out["mel_shape"] != [4, 128, 216]:
+        failures.append(f"request: {request_launches} K2 launches, mel_shape {out['mel_shape']}")
+    latency = [out["latency_s"], service.generate(n=4, seed=1)["latency_s"]]
+    renders = []
+    real_render = sf2._render_sf2
+
+    def timed_render(*args, **kw):
+        _sync()
+        t0 = time.perf_counter()
+        audio = real_render(*args, **kw)
+        _sync()
+        renders.append({"s": time.perf_counter() - t0, "args": args, "kw": kw})
+        return audio
+
+    sf2._render_sf2 = timed_render
+    try:
+        t = time.perf_counter()
+        service.generate(n=4, seed=0)
+        timed_request_s = time.perf_counter() - t
+    finally:
+        sf2._render_sf2 = real_render
+    clips = [{"voices": int((r["args"][1][2] > 0).sum()), "L": r["args"][4], "W": r["args"][5],
+              "render_s": round(r["s"], 4),
+              "toggles": sorted(k for k, v in r["kw"].items() if v is True)} for r in renders]
+    one = max(renders, key=lambda r: r["s"])
+    render_profile = device_busy(lambda: real_render(*one["args"], **one["kw"]))
+    emit({"phase": "sf2_profile", "request": device_busy(lambda: service.generate(n=4, seed=2)),
+          "one_render": render_profile})
+
+    # the same clips' mels on the card and on the CPU (sims end by count)
+    gen, _ = load_gandes_state(GanDesConfig(), device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    mats = gandes_eval_forward(gen)(torch.randn(4, 100, generator=g, device=DEVICE)).cpu().numpy()
+    specs = {}
+    for dev in (DEVICE, "cpu"):
+        np.random.seed(0)
+        mel_power_cuda.launches = 0
+        t = time.perf_counter()
+        specs[dev] = matrix_to_wav(mats, size=20, start=0, end=216, sound_font=font,
+                                   out_dir=os.path.join(d, "m2w_" + dev),
+                                   log_path=os.path.join(d, "logs_" + dev) + "/",
+                                   max_sim_time=60, device=dev).cpu()
+        _sync()
+        specs[dev + "_s"] = time.perf_counter() - t
+        specs[dev + "_launches"] = mel_power_cuda.launches
+    db_above, db_all = _mel_gap(specs[DEVICE], specs["cpu"])
+    if (specs[DEVICE + "_launches"] != 4 or db_above > 0.05 or db_all > 0.5
+            or not bool(torch.isfinite(specs[DEVICE]).all())):
+        failures.append(f"card vs cpu mels: {db_above} dB above the floor, {db_all} dB all, "
+                        f"{specs[DEVICE + '_launches']} launches")
+
+    # 3. matrix_to_wav(parallel=4) through the font
+    np.random.seed(1)
+    mel_power_cuda.launches = 0
+    t = time.perf_counter()
+    par = matrix_to_wav(mats, size=20, start=0, end=216, sound_font=font, parallel=4,
+                        out_dir=os.path.join(d, "par"), log_path=os.path.join(d, "logs_par") + "/",
+                        device=DEVICE)
+    _sync()
+    parallel_s = time.perf_counter() - t
+    parallel_launches = mel_power_cuda.launches
+    if parallel_launches != 4 or tuple(par.shape) != (4, 128, 216):
+        failures.append(f"parallel: {parallel_launches} launches, shape {tuple(par.shape)}")
+
+    # 4. sim-to-wav and 5. train-gandes through the font (both write to cwd)
+    calls = {"render_midi": 0, "render_events": 0}
+    wrapped = {}
+    for meth in calls:
+        real = getattr(sf2.Sf2Synth, meth)
+
+        def counting(self, *a, _real=real, _name=meth, **k):
+            calls[_name] += 1
+            return _real(self, *a, **k)
+
+        wrapped[meth] = real
+        setattr(sf2.Sf2Synth, meth, counting)
+    real_items = []
+    real_getitem = datasets.MaestroDatasetGanDes.__getitem__
+    datasets.MaestroDatasetGanDes.__getitem__ = (
+        lambda self, i: real_items.append(real_getitem(self, i)) or real_items[-1])
+    cwd = os.getcwd()
+    try:
+        os.chdir(d)
+        os.makedirs("logs")
+        t = time.perf_counter()
+        cli.main(["sim-to-wav", "--sound-font", font, "--seed", "0", "--out-dir", "sim",
+                  "--device", DEVICE])
+        sim_s = time.perf_counter() - t
+        sim_renders = dict(calls)
+        with open(os.path.join("sim", "wav", "output_0.wav"), "rb") as f:
+            sim_wav = f.read()
+        corpus = os.path.join(work_dir, "gandes_corpus")
+        if not os.path.isdir(corpus):
+            write_corpus(corpus, n_files=4, seconds=150.0, seed=1)
+        for k in calls:
+            calls[k] = 0
+        mel_power_cuda.launches = 0
+        t = time.perf_counter()
+        cli.main(["train-gandes", "--midi-root", corpus, "--steps", "2", "--batch-size", "30",
+                  "--sound-font", font, "--des-parallel", "16", "--np-seed", "0",
+                  "--models-dir", "models", "--device", DEVICE])
+        _sync()
+        train_s = time.perf_counter() - t
+        train_launches = mel_power_cuda.launches
+    finally:
+        os.chdir(cwd)
+        for meth, real in wrapped.items():
+            setattr(sf2.Sf2Synth, meth, real)
+        datasets.MaestroDatasetGanDes.__getitem__ = real_getitem
+    real_slices = sum(len(x) for x in real_items)
+    if sim_renders["render_midi"] != 1 or sim_wav[:4] != b"RIFF" or len(sim_wav) < 44100:
+        failures.append(f"sim-to-wav: renders {sim_renders}, {len(sim_wav)} WAV bytes")
+    if (calls["render_events"] != 60 or calls["render_midi"] != len(real_items)
+            or train_launches != 60 + real_slices):
+        failures.append(f"train-gandes: renders {calls}, real items {len(real_items)}, "
+                        f"{train_launches} K2 launches, {real_slices} real slices")
+
+    row = {"phase": "sf2", "phase_s": round(time.perf_counter() - t_phase, 2),
+           "font": {"programs": 128, "samples": 1024, "bank_samples": bank_samples,
+                    "build_s": round(font_build_s, 3), "parse_and_upload_s": round(font_load_s, 3),
+                    "bank_upload_s": round(upload_s, 4),
+                    "bank_mb": round(4 * bank_samples / 2**20, 1)},
+           "cases": cases, "warmup_s": round(warmup_s, 3), "latency_s": latency,
+           "timed_request_s": round(timed_request_s, 3), "clips": clips,
+           "render_s_per_clip": round(sum(c["render_s"] for c in clips) / len(clips), 4),
+           "one_render_device_ms": render_profile["device_busy_ms"],
+           "request_launches": request_launches,
+           "card_vs_cpu": {"db_err_above_floor": db_above, "db_err_all_bins": db_all,
+                           "card_s": round(specs[DEVICE + "_s"], 3),
+                           "cpu_s": round(specs["cpu_s"], 3)},
+           "parallel": {"launches": parallel_launches, "s": round(parallel_s, 3)},
+           "sim_to_wav": {"s": round(sim_s, 3), "wav_bytes": len(sim_wav)},
+           "train_gandes": {"s": round(train_s, 3), "sf2_renders": calls,
+                            "real_slices": real_slices, "launches": train_launches}}
+    emit(row)
+    if failures:
+        raise AssertionError(f"sf2: {failures}")
+    return request_launches + specs[DEVICE + "_launches"] + parallel_launches + train_launches
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
@@ -2155,6 +2559,14 @@ def main() -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     phase_build()
+    if sys.argv[1:] == ["--only", "sf2"]:
+        with tempfile.TemporaryDirectory() as work:
+            phase_sf2(work)
+        print(f"total_s {time.perf_counter() - t_start:.1f}")
+        print(smi)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     rows = phase_kernel()
     roll_rows = phase_kernel_roll()
     launches = phase_serve()
@@ -2169,6 +2581,7 @@ def main() -> int:
         mel_launches += gandes_launches
         mmgan_models = phase_train_mmgan_modes(work)
         mel_launches += phase_eval_metrics(work, mmgan_models, gandes_state)
+        mel_launches += phase_sf2(work)
 
     r = next(row for row in rows if row["case"] == "serve_2^22")  # the serve clips' bucket
     # the pickler's own events for one launch
@@ -2177,8 +2590,9 @@ def main() -> int:
                 "source": "gandes_tpu_torch/ops/csrc/mel_power.cu",
                 "replaces": "gandes_tpu/ops/pallas_mel.py:101",
                 # the serve path's, the parallel matrix_to_wav's, GAN-DES
-                # training's (fake clips and real slices) and eval-metrics'
-                # (real slices and each checkpoint's fake clips)
+                # training's (fake clips and real slices), eval-metrics'
+                # (real slices and each checkpoint's fake clips) and the
+                # SF2 paths' (requests, matrix_to_wav, train-gandes)
                 "launches": mel_launches, "max_abs_err": max(x["max_abs_err"] for x in rows),
                 "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

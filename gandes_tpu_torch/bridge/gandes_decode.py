@@ -10,8 +10,9 @@ return mel-dB spectrograms cropped to [start:end].
 
 Differences from the reference, all deliberate (as in the JAX package):
 
-* FluidSynth is replaced by the additive synth (music/synth.py) — no
-  subprocess, no soundfont file; the WAV artifact is still written to
+* FluidSynth is replaced by the port's synth (music/synth.py): the
+  additive instrument model, or with ``sound_font`` SF2 sample playback
+  (music/sf2.py) — no subprocess; the WAV artifact is still written to
   ``<out_dir>/wav/output_<i>.wav``.
 * The reference's source/server membership tests (``i in sources`` against
   a ``np.where`` *tuple*) raise ValueError whenever 2+ sources are

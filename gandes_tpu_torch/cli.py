@@ -13,9 +13,15 @@ Ported commands, with ``gandes_tpu/cli.py``'s flags plus ``--device``
         [--g-update none|surrogate|reinforce] [--des-parallel 16] [--resume]
     python -m gandes_tpu_torch.cli generate-mmgan [--torch-checkpoint models/mmgan_64_64_epoch_5] --n 4
     python -m gandes_tpu_torch.cli serve --model mmgan|gandes|both [--torch-checkpoint gen.pt]
+    python -m gandes_tpu_torch.cli sim-to-wav [--sound-font FluidR3_GM.sf2] [--size 32]
+        [--instrument P] [--out-dir adj_sim_outputs] [--seed 0]
     python -m gandes_tpu_torch.cli eval-metrics --data data/preprocessed_data_50.pkl
         [--family mmgan|gandes] [--torch-checkpoint CKPT | --checkpoints-dir models]
         [--rank-by avg_rank|<gap key>] [--n 16] [--seed 0] [--des-parallel 16]
+
+``--sound-font FONT.sf2`` (``serve``, ``train-gandes``, ``eval-metrics
+--family gandes``, ``sim-to-wav``) renders the GAN-DES audio by SF2 sample
+playback from that font (``music/sf2.py``) instead of the additive synth.
 
 ``eval-metrics`` prints a JSON object with the JAX command's keys. Its
 generated side's noise (and, for MM-GAN, G1's aux input) comes from a
@@ -318,6 +324,16 @@ def _cmd_serve(args):
                device=args.device)
 
 
+def _cmd_sim_to_wav(args):
+    from gandes_tpu_torch.bridge.sim_demo import sim_to_wav
+
+    np.random.seed(args.seed)
+    outs = sim_to_wav(matrices=[None], size=args.size, use_same_instrument=args.instrument,
+                      out_dir=args.out_dir, sound_font=args.sound_font or "FluidR3_GM.sf2",
+                      device=args.device)
+    print("\n".join(outs))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gandes_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -398,8 +414,8 @@ def main(argv=None):
     sp = sub.add_parser("train-gandes", help="train the GAN-DES spectrogram GAN")
     sp.add_argument("--midi-root", required=True)
     sp.add_argument("--sound-font", default=None,
-                    help=".sf2 path: SF2 playback is not ported and raises (default: additive "
-                         "synth)")
+                    help=".sf2 path: real and fake sides render by sample playback from "
+                         "this soundfont (default: additive synth)")
     sp.add_argument("--batch-size", type=int, default=30)
     sp.add_argument("--steps", type=int, default=None)
     sp.add_argument("--models-dir", default="models")
@@ -460,9 +476,20 @@ def main(argv=None):
     sp.add_argument("--start", type=int, default=100, help="MM-GAN roll crop start")
     sp.add_argument("--sequence-length", type=int, default=50, help="MM-GAN roll length")
     sp.add_argument("--sound-font", default=None,
-                    help=".sf2 path: SF2 playback is not ported and raises")
+                    help=".sf2 path: WAV payloads render by sample playback")
     sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
     sp.set_defaults(fn=_cmd_serve)
+
+    sp = sub.add_parser("sim-to-wav", help="random queueing network -> WAV demo")
+    sp.add_argument("--sound-font", default=None,
+                    help=".sf2 path: render by sample playback from this soundfont (default: "
+                         "FluidR3_GM.sf2 if present, else the additive synth)")
+    sp.add_argument("--size", type=int, default=32)
+    sp.add_argument("--instrument", type=int, default=None)
+    sp.add_argument("--out-dir", default="adj_sim_outputs")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    sp.set_defaults(fn=_cmd_sim_to_wav)
 
     sp = sub.add_parser("eval-metrics", help="music-quality statistics: dataset vs generated")
     sp.add_argument("--data", required=True,
@@ -471,8 +498,7 @@ def main(argv=None):
                     help="model family: mmgan ranks piano-roll gaps, gandes ranks mel-spectral "
                          "gaps")
     sp.add_argument("--sound-font", default=None,
-                    help=".sf2 path for the gandes audio path: SF2 playback is not ported and "
-                         "raises")
+                    help=".sf2 path for the gandes audio path (real and generated sides)")
     sp.add_argument("--checkpoint", default=None,
                     help="orbax checkpoint dir: rejected, see export-torch")
     sp.add_argument("--torch-checkpoint", default=None,

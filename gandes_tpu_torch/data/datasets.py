@@ -14,7 +14,8 @@
 * ``MaestroDatasetTorch`` — per-file ``.pt`` tensors (:90-100).
 * ``InputSong`` / ``MaestroDatasetGanDes`` / ``my_collate`` /
   ``collect_real_mels`` — the GAN-DES audio path (`GAN_DES/datasets.py`):
-  MIDI -> audio (the additive synth instead of FluidSynth) -> 5 s slices ->
+  MIDI -> audio (the additive synth, or SF2 playback of a given
+  ``sound_font``, instead of FluidSynth) -> 5 s slices ->
   <=k random mel spectrograms per item, concatenated across the batch. The
   audio and every mel stay on the ``device`` they are given: K2 on
   ``"cuda"``, one launch per slice.
@@ -344,7 +345,7 @@ class InputSong(Dataset):
 
 class MaestroDatasetGanDes(Dataset):
     """MIDI -> synth audio -> 5 s slices -> <=batch_size random mels
-    (`GAN_DES/datasets.py:55-91`, FluidSynth replaced by the additive synth,
+    (`GAN_DES/datasets.py:55-91`, FluidSynth replaced by the port's synth,
     no temp-wav round trip). The render stays on ``device`` and is cropped
     to its true length before slicing, so every slice's mel runs there (one
     K2 launch per slice on ``"cuda"``; a numpy slice would take the mel's
@@ -359,8 +360,8 @@ class MaestroDatasetGanDes(Dataset):
         self.INPUT_FOLDER = input_folder
         self.k = batch_size
         self.sample_rate = sample_rate
-        # None -> the additive synth; an existing .sf2 raises until SF2
-        # playback is ported (music/synth.py)
+        # None -> the additive synth; an existing .sf2 -> SF2 sample
+        # playback on ``device`` (music/synth.py)
         self.sound_font = sound_font
         self.device = device
         meta = metadata_json or os.path.join(input_folder, "maestro-v3.0.0.json")

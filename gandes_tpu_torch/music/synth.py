@@ -12,19 +12,25 @@ TPU recompiles). The timeline keeps its power-of-two length bucket ``L``:
 ``as_tensor=True`` callers get the bucketed buffer (zero tail), and the
 GAN-DES mel is taken over that buffer.
 
-SF2 sample playback (``gandes_tpu/music/sf2.py``) is not ported yet: the
-reference's default font name, when absent, means this additive synth, as
-in the JAX package; any other existing ``.sf2`` raises
-``NotImplementedError``.
+``sound_font``: an existing ``.sf2`` renders by SF2 sample playback from
+that font instead (``music/sf2.py``, the reference's FluidSynth +
+FluidR3_GM pipeline), on the same ``device``; None, or the reference's
+default font name when that file is absent, means this additive synth, as
+in the JAX package; any other missing path raises.
+
+``FluidSynth`` at the bottom is the midi2audio-compatible facade
+(``FluidSynth(sound_font, sample_rate).midi_to_audio(mid, wav)``).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
 
+from gandes_tpu_torch.data.audio import save_wav
 from gandes_tpu_torch.music.midi import MidiFile, iter_seconds
 
 N_HARMONICS = 6
@@ -185,8 +191,15 @@ def render_midi(midi_input, sr: int = 44100, max_events: int = 1024,
 
     Returns numpy audio cropped to the true length (the whole pow2 bucket
     with ``pad_to_bucket``), or with ``as_tensor`` the bucketed buffer on
-    ``device`` and the true sample count."""
+    ``device`` and the true sample count. An existing ``sound_font`` renders
+    by SF2 sample playback (``max_events`` then bounds the extracted
+    events; the font's voices are capped at 2048)."""
     midi = MidiFile(midi_input) if isinstance(midi_input, str) else midi_input
+    sound_font = _resolve_sound_font(sound_font)
+    if sound_font:
+        return _get_sf2_synth(sound_font, device=device).render_midi(
+            midi, sr=sr, min_seconds=min_seconds, tail=tail, pad_to_bucket=pad_to_bucket,
+            as_tensor=as_tensor, max_events=max_events)
     events = midi_to_event_arrays(midi, max_events)
     return render_events(events, sr=sr, max_events=max_events,
                          min_seconds=min_seconds, tail=tail,
@@ -199,8 +212,13 @@ def render_events(events, sr: int = 44100, max_events: int = 1024,
                   pad_to_bucket: bool = False, as_tensor: bool = False,
                   sound_font: str | None = None, device="cuda"):
     """Render pre-extracted event arrays (the ``midi_to_event_arrays``
-    tuple) — same return conventions as :func:`render_midi`."""
-    _resolve_sound_font(sound_font)
+    tuple, or the native decoder's identical output) — same soundfont
+    dispatch and return conventions as :func:`render_midi`."""
+    sound_font = _resolve_sound_font(sound_font)
+    if sound_font:
+        return _get_sf2_synth(sound_font, device=device).render_events(
+            events, sr=sr, min_seconds=min_seconds, tail=tail, pad_to_bucket=pad_to_bucket,
+            as_tensor=as_tensor)
     notes_l, vels_l, ons_l, offs_l, progs_l, n, end = events
     n = min(n, max_events)
     length_s = min(max(float(end) + tail, min_seconds), RENDER_MAX_S)
@@ -223,20 +241,67 @@ def render_events(events, sr: int = 44100, max_events: int = 1024,
 DEFAULT_SOUND_FONT = "FluidR3_GM.sf2"
 
 
-def _resolve_sound_font(sound_font: str | None) -> None:
-    """None/"" or an absent default font name -> the additive synth; a
-    missing path raises; an existing ``.sf2`` raises until SF2 playback is
-    ported (rendering it with the additive synth would be a different
-    instrument, silently)."""
+def _resolve_sound_font(sound_font: str | None) -> str | None:
+    """None/"" -> the additive synth; an existing path -> SF2 sample
+    playback; a missing path raises (a typo'd --sound-font must not
+    silently train, serve or evaluate on the wrong timbre) unless it is the
+    reference's default font name, which may be absent."""
     if not sound_font:
-        return
+        return None
     if os.path.isfile(sound_font):
-        raise NotImplementedError(
-            f"SF2 sample playback ({sound_font!r}) is not ported to gandes_tpu_torch "
-            f"yet (ROADMAP.md Queue 1 item 8, SF2 renderer); pass sound_font=None for the "
-            f"additive synth")
+        return sound_font
     if os.path.basename(sound_font) == DEFAULT_SOUND_FONT:
-        return
+        return None
     raise FileNotFoundError(
         f"sound font not found: {sound_font!r} (pass None for the additive "
         f"synth; the default name {DEFAULT_SOUND_FONT!r} may be absent)")
+
+
+_SF2_CACHE: dict = {}
+_SF2_LOCK = threading.Lock()
+
+
+def _get_sf2_synth(sound_font: str, interp: str = "cubic", device="cuda"):
+    """Parsed font and device bank, one per (path, interpolation, device):
+    every pipeline render of a font goes through here, so the real and fake
+    sides of training share one bank and one interpolator. A lock keeps
+    concurrent first requests (the threaded server) to one upload."""
+    from gandes_tpu_torch.music.sf2 import Sf2Synth
+
+    key = (sound_font, interp, torch.device(device))
+    with _SF2_LOCK:
+        synth = _SF2_CACHE.get(key)
+        if synth is None:
+            synth = _SF2_CACHE[key] = Sf2Synth(sound_font, interp=interp, device=device)
+    return synth
+
+
+class FluidSynth:
+    """midi2audio-compatible facade (a ``from midi2audio import FluidSynth``
+    drop-in). Given an existing ``.sf2`` it renders by sample playback from
+    that font (``music/sf2.py``, the reference's FluidR3_GM pipeline,
+    `GAN_DES/matrix_sim_process.py:114-125`); without one, the additive
+    instrument model above. Renders run on ``device``."""
+
+    def __init__(self, sound_font: str | None = None, sample_rate: int = 44100,
+                 device="cuda"):
+        self.sample_rate = sample_rate
+        self.sound_font = sound_font
+        self.device = device
+        resolved = _resolve_sound_font(sound_font)
+        self._sf2 = _get_sf2_synth(resolved, device=device) if resolved else None
+
+    def midi_to_audio(self, midi_path: str, wav_path: str):
+        if self._sf2 is not None:
+            audio = self._sf2.render_midi(midi_path, sr=self.sample_rate)
+        else:
+            audio = render_midi(midi_path, sr=self.sample_rate, device=self.device)
+        save_wav(wav_path, audio, self.sample_rate)
+
+
+def midi_to_audio_fluidsynth(midi_file_path, audio_file_path, sound_font_path=None,
+                             device="cuda"):
+    """== reference ``midi_to_audio_fluidsynth`` (MMGAN_MIDI_DES/util.py:123-127):
+    render at 22 050 Hz through the synth facade."""
+    FluidSynth(sound_font_path, sample_rate=22050, device=device).midi_to_audio(
+        midi_file_path, audio_file_path)

@@ -69,9 +69,9 @@ class GanDesConfig:
     # every step; training never reads them)
     write_wav: bool = True
     # .sf2 path: the fake path renders by sample playback from this
-    # soundfont (it must match the real dataset's); SF2 playback is not
-    # ported yet and an existing .sf2 raises (None = the additive synth on
-    # both sides)
+    # soundfont, and so must the real dataset (train-gandes passes it to
+    # both), or D separates real from fake by timbre alone (None = the
+    # additive synth on both sides)
     sound_font: str | None = None
     # pad short my_collate batches up to batch_size by cycling their own
     # samples (the JAX package's way to keep one compiled program shape).
@@ -169,7 +169,7 @@ def _check_config(cfg: GanDesConfig) -> None:
         raise ValueError(f"compute_dtype must be float32 or bf16, got {cfg.compute_dtype!r}")
     if cfg.trace_dir:
         raise _not_ported("trace_dir", 12, "tooling: device_trace -> torch.profiler")
-    _resolve_sound_font(cfg.sound_font)  # an existing .sf2 raises (item 8)
+    _resolve_sound_font(cfg.sound_font)  # a missing font raises before the run starts
 
 
 def _floats(losses) -> list:

@@ -1,7 +1,8 @@
 """gandes_tpu_torch's CUDA kernels against their plain PyTorch versions, MM-GAN
 training (every ``g_update`` mode) against the CPU, the train step's CUDA
 graphs against the eager step, the parallel GAN-DES decode, GAN-DES
-training and the eval metrics, on the card.
+training, the eval metrics and SF2 sample playback (against the CPU port,
+bitwise repeats, a bank past 2^24 samples), on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file imports
 neither JAX nor gandes_tpu, so it runs on a machine that has only the port's
@@ -752,3 +753,90 @@ def test_eval_metrics_on_card_match_cpu(cuda):
             torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=rtol, atol=0)
     hist = metrics.pitch_class_histogram(rolls.to(cuda))
     assert torch.equal(hist.cpu(), metrics.pitch_class_histogram(rolls))
+
+
+# ------------------------------------------------------------ SF2 playback
+
+
+def _sf2_render(path, device, notes, **kw):
+    import chip_smoke
+    from gandes_tpu_torch.music.sf2 import Sf2Synth
+
+    synth = Sf2Synth(path, device=device, **kw)
+    mid = chip_smoke._sf2_midi(notes)
+    cols, nv, _ = synth.midi_to_voices(mid, chip_smoke.SF2_SR)
+    audio = synth.render_midi(mid, sr=chip_smoke.SF2_SR, min_seconds=1.0)
+    return audio, 1e-4 if chip_smoke._sf2_uses_fft(cols, nv) else 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", ["cubic", "linear"])
+@pytest.mark.parametrize("name", ["plain_loop", "dahdsr", "filter_q", "lfos_pan",
+                                  "modenv_sweeps", "effects_sends", "layers_exclusive",
+                                  "full_matrix"])
+def test_sf2_render_on_card_matches_cpu_and_repeats(cuda, tmp_path, name, interp):
+    """Each static branch (the golden fixture cases: filter, swept filter,
+    LFOs, mod env, reverb and chorus, exclusive class) on the card vs the
+    CPU port: atol 2e-5, 1e-4 where an FFT runs, samples past it (gate
+    flips) at most 1e-4 of the clip; a repeat on the card bitwise."""
+    import chip_smoke
+
+    build, notes = chip_smoke.SF2_CASES[name]
+    path = str(tmp_path / f"{name}.sf2")
+    build(path)
+    card, atol = _sf2_render(path, cuda, notes, interp=interp)
+    again, _ = _sf2_render(path, cuda, notes, interp=interp)
+    cpu, _ = _sf2_render(path, "cpu", notes, interp=interp)
+    assert card.shape == cpu.shape and np.isfinite(card).all()
+    np.testing.assert_array_equal(card, again)
+    assert np.count_nonzero(np.abs(card - cpu) > atol) <= 1e-4 * card.size
+
+
+@pytest.mark.cuda
+def test_sf2_bank_above_2_pow_24_samples_on_card(cuda, tmp_path):
+    """A sample past 2^24 bank samples renders on the card bit for bit as
+    the same sample at the bank's start (start-relative float32 positions,
+    int64 indices), and as the CPU port within 2e-5."""
+    import chip_smoke
+    from gandes_tpu_torch.music import sf2
+
+    m = sf2
+    spec = {"name": "s", "data": chip_smoke._sine(3000, 37, 0.4), "sample_rate": 22050,
+            "original_pitch": 60, "loop_start": 300, "loop_end": 2700}
+    zone = {"sample": 0, "gens": {m.G_SAMPLE_MODES: 1, m.G_HOLD_VOL: 2786,
+                                  m.G_VIB_LFO_TO_PITCH: 60}}
+    preset = [{"name": "p", "program": 0, "zones": [{"instrument": 0}]}]
+    small, big = str(tmp_path / "small.sf2"), str(tmp_path / "big.sf2")
+    m.build_sf2(small, samples=[spec], instruments=[{"name": "i", "zones": [zone]}],
+                presets=preset)
+    filler = {"name": "pad", "data": np.zeros((1 << 24) + 1000, np.int16), "sample_rate": 22050}
+    m.build_sf2(big, samples=[filler, spec],
+                instruments=[{"name": "i", "zones": [dict(zone, sample=1)]}], presets=preset)
+    notes = [(67, 100, 0.0, 0.8)]
+    on_big, _ = _sf2_render(big, cuda, notes)
+    on_small, _ = _sf2_render(small, cuda, notes)
+    cpu, _ = _sf2_render(small, "cpu", notes)
+    np.testing.assert_array_equal(on_big, on_small)
+    np.testing.assert_allclose(on_big, cpu, atol=2e-5)
+    assert np.abs(on_big).max() > 0.1
+
+
+@pytest.mark.cuda
+def test_sf2_render_events_stays_on_the_card(cuda, tmp_path):
+    """``synth.render_events(sound_font=..., as_tensor=True)`` returns the
+    bucketed render on the card, from one cached bank per device."""
+    import chip_smoke
+    from gandes_tpu_torch.music import synth
+
+    path = str(tmp_path / "f.sf2")
+    chip_smoke.SF2_CASES["full_matrix"][0](path)
+    rng = np.random.RandomState(0)
+    n = 40
+    ons = np.sort(rng.uniform(0, 1.5, n)).astype(np.float32)
+    events = (rng.randint(40, 90, n).astype(np.int32), rng.randint(30, 128, n).astype(np.float32),
+              ons, ons + 0.3, np.zeros(n, np.int32), n, float(ons.max() + 0.3))
+    audio, true_len = synth.render_events(events, as_tensor=True, sound_font=path, device=cuda)
+    assert audio.device.type == "cuda" and audio.shape[0] >= true_len
+    assert synth._get_sf2_synth(path, device=cuda).bank.device.type == "cuda"
+    cpu = synth.render_events(events, sound_font=path, device="cpu")
+    np.testing.assert_allclose(audio[:true_len].cpu().numpy(), cpu, atol=1e-4)

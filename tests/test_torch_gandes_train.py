@@ -667,10 +667,9 @@ def test_cli_train_gandes_on_cpu(midi_fixture_dir, tmp_path, monkeypatch, capsys
 
 @pytest.mark.parametrize("option,item", [
     ({"mesh_shape": (2, 1)}, 11), ({"compute_dtype": "bf16"}, 13),
-    ({"trace_dir": "trace"}, 12), ({"sound_font": "font.sf2"}, 8)], ids=lambda x: str(x))
+    ({"trace_dir": "trace"}, 12)], ids=lambda x: str(x))
 def test_unported_options_raise(tmp_path, monkeypatch, option, item):
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "font.sf2").write_bytes(b"RIFF")
     cfg = _loop_cfg(gandes_loop, tmp_path, "unported", **option)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1 item {item},"):
         gandes_loop.train_gandes(iter(_batches(1)), cfg, device="cpu")
@@ -678,3 +677,30 @@ def test_unported_options_raise(tmp_path, monkeypatch, option, item):
     with pytest.raises(ValueError, match="g_update"):
         gandes_loop.train_gandes(iter([]), _loop_cfg(gandes_loop, tmp_path, "x", g_update="bad"),
                                  device="cpu")
+
+
+def test_sound_font_option_trains_through_the_font(tmp_path, monkeypatch):
+    """``sound_font`` (which raised before SF2 playback was ported) now trains:
+    one step on the CPU, the fake clips rendered through the font; a
+    missing path still raises before the run starts."""
+    from gandes_tpu_torch.music import sf2
+
+    monkeypatch.chdir(tmp_path)
+    font = str(tmp_path / "font.sf2")
+    t = np.arange(2000)
+    sf2.build_sf2(font, samples=[{"name": "s", "data": (0.5 * np.sin(2 * np.pi * t / 50)).astype(
+                      np.float32), "sample_rate": 44100, "original_pitch": 60,
+                      "loop_start": 200, "loop_end": 1800}],
+                  instruments=[{"name": "i", "zones": [{"sample": 0, "gens": {
+                      sf2.G_SAMPLE_MODES: 1, sf2.G_REVERB_SEND: 200}}]}],
+                  presets=[{"name": "p", "program": 0, "zones": [{"instrument": 0}]}])
+    renders = []
+    _recording(monkeypatch, sf2.Sf2Synth, "render_midi", renders)
+    cfg = _loop_cfg(gandes_loop, tmp_path, "font", sound_font=font, write_wav=False)
+    np.random.seed(0)
+    _, history = gandes_loop.train_gandes(iter(_batches(1)), cfg, device="cpu")
+    assert len(history["disc"]) == 1 and np.isfinite(history["disc"][0])
+    assert len(renders) == B  # each fake clip rendered by SF2 playback
+    with pytest.raises(FileNotFoundError):
+        gandes_loop.train_gandes(iter(_batches(1)), _loop_cfg(
+            gandes_loop, tmp_path, "typo", sound_font=str(tmp_path / "typo.sf2")), device="cpu")
