@@ -21,7 +21,12 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               K2 (mel_power) at the serve path's shapes: rtol 2e-3 / atol
               1e-4 in power, 0.05 dB after ``amplitude_to_db_torch``, and
               two launches on one wave bitwise equal; the bound counts the
-              function's least work (a real FFT per frame).
+              function's least work (a real FFT per frame). Also at 300,
+              900, 1,024 and 1,025 samples (``SHORT_WAVES``, shorter than
+              the 1,024-sample reflect pad, at the dynamic hop len // 215),
+              where ``melspectrogram_db_tensor`` on the card is held to the
+              CPU's (128, 217) within 0.05 dB; torch.stft refuses such a
+              pad, so those rows have no ``library_ms``.
               K1 (roll_rasterize) at the JAX kernel tests' shapes, the
               pickler's (8, 4096, 300), a dense (8, 16384, 300), a long
               roll (2, 4096, 2000), one pitch (8, 4096, 300; every note 60)
@@ -206,6 +211,23 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               matplotlib ``spectrogram.png``, without it a non-zero exit
               naming matplotlib after the 4 WAVs.
 
+19. composite — ``MultiModalGAN(...).to("cuda")`` with ``decode=None``:
+              a train-mode forward (B = 3) through its own ``matrix_to_midi``
+              gives finite (3, 1) logits and a failed count (a CPU copy's
+              printed beside), ``generate_midi`` writes ``generation.mid``;
+              ``SimNN`` on the card vs the CPU (atol 1e-4).
+20. bench   — ``python -m gandes_tpu_torch.cli bench --all`` in its own
+              process (``GANDES_BENCH_DEADLINE_S=240``): rc 0, no row
+              failed or skipped, every metric of ``BENCH_METRICS`` finite,
+              the headline last; its rows printed with the card's name and
+              power limit. The run's own launch counts (its ``# launches``
+              note on stderr): K2 and K1 launched, their launches added to
+              the ``kernels`` line's.
+21. demo    — ``python -m gandes_tpu_torch.demo --out OUT`` in its own
+              process: rc 0, the preset WAVs, ``generation.mid`` (MThd),
+              ``generation.wav`` (RIFF), the plots (or, without
+              matplotlib, each named as skipped).
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Bounds use the H100 SXM's published
 peaks: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM.
@@ -227,6 +249,7 @@ import time
 import urllib.request
 
 DEVICE = "cuda"
+SHORT_WAVES = (300, 900, 1024, 1025)
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -357,7 +380,11 @@ def phase_kernel():
     import numpy as np
     import torch
 
-    from gandes_tpu_torch.music.mel import amplitude_to_db_torch, mel_filterbank
+    from gandes_tpu_torch.music.mel import (
+        amplitude_to_db_torch,
+        mel_filterbank,
+        melspectrogram_db_tensor,
+    )
     from gandes_tpu_torch.ops.mel_power import kernel, mel_power_cuda, mel_power_reference
 
     sr, n_fft = 44100, 2048
@@ -370,6 +397,9 @@ def phase_kernel():
     cases = [("hop512", 44100, 512, True, False), ("hop1025", 220500, 1025, True, False),
              ("hop220", 44100, 220, True, False), ("blank_slaney", 220500, 512, False, True)]
     cases += [(f"serve_2^{p}", 1 << p, (1 << p) // 215, True, False) for p in (18, 20, 22, 23)]
+    # waves shorter than the n_fft / 2 reflect pad at melspectrogram_db_tensor's
+    # dynamic hop: the kernel folds the reflection again and again
+    cases += [(f"short_{n}", n, n // 215, True, False) for n in SHORT_WAVES]
     rng = np.random.RandomState(0)
     rows = []
     for label, n, hop, htk, slaney in cases:
@@ -398,7 +428,8 @@ def phase_kernel():
         ms = cuda_ms(lambda: mel_power_cuda(wav, sr, **kw))
         kernel_ms, traced = device_ms(lambda: mel_power_cuda(wav, sr, **kw), "mel_power_kernel")
         plain_ms = cuda_ms(lambda: mel_power_reference(wav, sr, **kw))
-        library_ms = cuda_ms(library)
+        # torch.stft's reflect pad refuses a pad as long as the wave
+        library_ms = cuda_ms(library) if n > n_fft // 2 else None
         frames = int(out.shape[1])
         # the device memory K2's constants hold for this n_fft and filterbank
         k = kernel()
@@ -412,8 +443,16 @@ def phase_kernel():
                "db_err": db_err, "repeat_equal": repeat_equal,
                "ok": ok_power and db_err <= 0.05 and repeat_equal, "ms": ms,
                "device_ms": kernel_ms, "traced_launches": traced, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "below_library": ms < library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "below_library": None if library_ms is None else ms < library_ms,
                "constants_bytes": sum(t.numel() * t.element_size() for t in consts)}
+        if label.startswith("short_"):
+            # melspectrogram_db_tensor of the same wave (cropped to 216 hops)
+            # on the card vs on the CPU
+            db = melspectrogram_db_tensor(wav)
+            gap = float((db.cpu() - melspectrogram_db_tensor(wav.cpu())).abs().max())
+            row.update(db_tensor_shape=list(db.shape), db_tensor_gap=gap)
+            row["ok"] = row["ok"] and row["db_tensor_shape"] == [128, 217] and gap <= 0.05
         emit(row)
         rows.append(row)
         if not row["ok"]:
@@ -480,8 +519,8 @@ def phase_kernel_roll():
                    np.array([[100, 90, 0, -1, 70, 0]], np.int32))
     # (label, events, T, start, timed): tests/test_pallas_roll.py's shapes,
     # then the pickler's, a dense one, a roll of four column tiles, a file
-    # whose every note is one pitch (the skewed case) and the pickler's own
-    # events for one launch (MIDI order)
+    # whose every note is one pitch (the skewed case), the pickler's own
+    # events for one launch (MIDI order) and the bench's events
     cases = [("jax_3x32", _roll_events(3, 32, 50, 5, 0), 50, 5, False),
              ("jax_2x128", _roll_events(2, 128, 50, 100, 1), 50, 100, False),
              ("jax_1x16", _roll_events(1, 16, 96, 0, 2), 96, 0, False),
@@ -491,7 +530,10 @@ def phase_kernel_roll():
              ("dense", _roll_events(8, 16384, 300, 0, 5), 300, 0, True),
              ("long_roll", _roll_events(2, 4096, 2000, 0, 6), 2000, 0, True),
              ("one_pitch", _roll_events(8, 4096, 300, 0, 7, pitch=60), 300, 0, True),
-             ("midi_order", _midi_order_events(), 300, 0, True)]
+             ("midi_order", _midi_order_events(), 300, 0, True),
+             # bench --all's piano_roll row: the bench draws these very
+             # events (RandomState(0), ons below T + start + 10)
+             ("bench_roll", _roll_events(16, 512, 50, 100, 0), 50, 100, True)]
     rows = []
     for label, events, T, start, timed in cases:
         ev = [torch.from_numpy(a).cuda() for a in events]
@@ -3084,6 +3126,144 @@ def phase_generate_gandes(work_dir):
     return launches
 
 
+def phase_composite(work_dir):
+    """``MultiModalGAN`` at ``MMGANConfig()`` width on the card with
+    ``decode=None``: a train-mode forward (B = 3, a CPU copy's aux and
+    routing seed) through its own ``matrix_to_midi`` returns finite (3, 1)
+    logits and a failed count; the same forward on the CPU copy is printed
+    beside (the decode may flip notes on last-bit differences of G);
+    ``generate_midi`` writes ``generation.mid``. ``SimNN`` on the card vs a
+    CPU copy (atol 1e-4)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gandes_tpu_torch.models import MultiModalGAN, SimNN
+
+    d = os.path.join(work_dir, "composite")
+    kw = dict(instrument=0, start=100, end=150, log_path=os.path.join(d, "logs") + "/",
+              out_dir=os.path.join(d, "midi"))
+    os.makedirs(kw["log_path"])
+    cpu_model = MultiModalGAN(**kw)
+    model = copy.deepcopy(cpu_model).to(DEVICE)
+    rng = np.random.RandomState(3)
+    noise1, noise2, aux = (rng.randn(3, 50).astype(np.float32) for _ in range(3))
+    beats = np.zeros((3, 50), np.float32)
+    t = time.perf_counter()
+    np.random.seed(3)
+    logits, failed = model(noise1, noise2, beats, count=1, aux=aux)
+    forward_s = time.perf_counter() - t
+    np.random.seed(3)
+    cpu_logits, cpu_failed = cpu_model(noise1, noise2, beats, count=1, aux=aux)
+    gap = float((logits.detach().cpu() - cpu_logits.detach()).abs().max())
+    rolls = model.generate_midi(noise1[:1], noise2[:1], beats[:1])
+    with open(os.path.join(kw["out_dir"], "generation.mid"), "rb") as f:
+        head = f.read(4)
+    simnn = SimNN(10)
+    x = torch.from_numpy(rng.randn(2, 1, 64, 64).astype(np.float32))
+    with torch.no_grad():
+        heads_gap = max(float((a.cpu() - b).abs().max())
+                        for a, b in zip(copy.deepcopy(simnn).to(DEVICE)(x.to(DEVICE)), simnn(x)))
+    row = {"phase": "composite", "logits_shape": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()), "failed": failed,
+           "cpu_failed": cpu_failed, "logits_cuda_vs_cpu": gap, "forward_s": round(forward_s, 3),
+           "generation_mid": head.decode(errors="replace"), "roll_shape": list(rolls[0].shape),
+           "simnn_cuda_vs_cpu": heads_gap}
+    emit(row)
+    if (row["logits_shape"] != [3, 1] or not row["finite"] or not 0 <= failed <= 3
+            or head != b"MThd" or row["roll_shape"] != [2, 128, 50] or heads_gap > 1e-4):
+        raise AssertionError(f"composite: {row}")
+
+
+BENCH_METRICS = (
+    "mmgan_train_step_mfu_pct", "mmgan_fused_train_steps_per_sec_sustained",
+    "mmgan_full_pipeline_steps_per_sec", "mmgan_train_steps_per_sec_scan64",
+    "des_engine_customers_per_sec_logged", "mel_5s_216f_ms", "piano_roll_ms_per_roll",
+    "mmgan_host_stage_s_per_batch", "mmgan_train_step_samples_per_sec_B1024",
+    "mmgan_train_step_mfu_pct_B1024", "mmgan_train_step_samples_per_sec_B1024_bf16",
+    "serve_warm_latency_p50_s", "mmgan_fused_train_steps_per_sec")
+
+
+def phase_bench(smi):
+    """``python -m gandes_tpu_torch.cli bench --all`` in its own process
+    (``GANDES_BENCH_DEADLINE_S=240``): exit 0, no row failed or skipped on
+    stderr, every metric of ``BENCH_METRICS`` present and finite, the
+    headline the last line, and K2 and K1 each launched in that run (the
+    counts it notes on stderr as ``# launches mel_power N roll_rasterize M``;
+    they start at 0 in the new process). Returns (K2, K1) launches."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GANDES_BENCH_DEADLINE_S="240",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gandes_tpu_torch.cli", "bench", "--all",
+                           "--device", DEVICE], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=330)
+    wall = time.perf_counter() - t
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    by_name = {r["metric"]: r for r in rows}
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("#")]
+    bad_stderr = [ln for ln in notes if "row failed" in ln or "row skipped" in ln]
+    missing = [m for m in BENCH_METRICS
+               if m not in by_name or not math.isfinite(by_name[m]["value"])]
+    counted = [ln.split() for ln in notes if ln.startswith("# launches ")]
+    launches = (int(counted[-1][3]), int(counted[-1][5])) if counted else (0, 0)
+    row = {"phase": "bench", "nvidia_smi": smi, "s": round(wall, 2), "rc": proc.returncode,
+           "rows": rows, "stderr_notes": notes,
+           "launches": {"mel_power": launches[0], "roll_rasterize": launches[1]}}
+    emit(row)
+    headline_last = bool(rows) and lines[-1].startswith("{") \
+        and json.loads(lines[-1])["metric"] == BENCH_METRICS[-1]
+    if (proc.returncode != 0 or bad_stderr or missing or not headline_last
+            or min(launches) < 1):
+        raise AssertionError(f"bench: rc {proc.returncode}, missing {missing}, stderr "
+                             f"{bad_stderr}, headline last {headline_last}, launches "
+                             f"{launches}; {proc.stderr[-1500:]}")
+    return launches
+
+
+def phase_demo(work_dir):
+    """``python -m gandes_tpu_torch.demo --out OUT`` in its own process on the
+    card: exit 0; the preset WAVs, ``mmgan/generation.mid`` (``MThd``) and
+    ``generation.wav`` (``RIFF``) non-empty; the plots written where
+    matplotlib is installed, else each named as skipped."""
+    import importlib.util
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(work_dir, "demo")
+    os.makedirs(d)
+    out = os.path.join(d, "demo_out")
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gandes_tpu_torch.demo", "--out", out,
+                           "--device", DEVICE], cwd=d, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t
+    files = {os.path.relpath(p, out): os.path.getsize(p)
+             for p in glob.glob(os.path.join(out, "**", "*"), recursive=True)
+             if os.path.isfile(p)}
+    heads = {}
+    for name in ("mmgan/generation.mid", "generation.wav"):
+        if name in files:
+            with open(os.path.join(out, name), "rb") as f:
+                heads[name] = f.read(4)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    plots = ("piano_roll.png", "spectrogram.png", "simulation.gif")
+    row = {"phase": "demo", "s": round(wall, 2), "rc": proc.returncode, "files": files,
+           "matplotlib": has_mpl, "stdout_tail": proc.stdout[-600:],
+           "stderr_tail": proc.stderr[-600:]}
+    emit(row)
+    plots_ok = (all(files.get(p, 0) > 0 for p in plots) if has_mpl
+                else all(f"{p} skipped: matplotlib" in proc.stdout for p in plots))
+    presets = [f"preset_{n}/wav/output_0.wav" for n in ("piano", "marimba", "organ")]
+    if (proc.returncode != 0 or heads.get("mmgan/generation.mid") != b"MThd"
+            or heads.get("generation.wav") != b"RIFF" or not plots_ok
+            or not all(files.get(p, 0) > 0 for p in presets)
+            or not all(size > 0 for size in files.values())):
+        raise AssertionError(f"demo: {row}")
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
@@ -3135,6 +3315,11 @@ def main() -> int:
         mel_launches += phase_trace(work)
         phase_doctor()
         mel_launches += phase_generate_gandes(work)
+        phase_composite(work)
+        bench_mel, bench_roll = phase_bench(smi)
+        mel_launches += bench_mel
+        roll_launches += bench_roll
+        phase_demo(work)
 
     r = next(row for row in rows if row["case"] == "serve_2^22")  # the serve clips' bucket
     # the pickler's own events for one launch
@@ -3146,8 +3331,8 @@ def main() -> int:
                 # training's (fake clips and real slices), eval-metrics'
                 # (real slices and each checkpoint's fake clips), the
                 # SF2 paths' (requests, matrix_to_wav, train-gandes), bf16
-                # GAN-DES training's, the traced train-gandes step's and
-                # generate-gandes
+                # GAN-DES training's, the traced train-gandes step's,
+                # generate-gandes' and the bench's mel row
                 "launches": mel_launches, "max_abs_err": max(x["max_abs_err"] for x in rows),
                 "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -23,6 +23,8 @@ layout so each module's counterpart is found under the same path:
 - ``eval``   — music-quality statistics of rolls and mels
                (``eval-metrics``).
 - ``serve``  — the HTTP generation server; ``cli`` its command line.
+- ``bench``  — the benchmark (``cli bench``); ``demo`` — the end-to-end
+               demo script (``python -m gandes_tpu_torch.demo``).
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.

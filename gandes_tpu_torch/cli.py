@@ -23,6 +23,7 @@ Ported commands, with ``gandes_tpu/cli.py``'s flags plus ``--device``
     python -m gandes_tpu_torch.cli eval-metrics --data data/preprocessed_data_50.pkl
         [--family mmgan|gandes] [--torch-checkpoint CKPT | --checkpoints-dir models]
         [--rank-by avg_rank|<gap key>] [--n 16] [--seed 0] [--des-parallel 16]
+    python -m gandes_tpu_torch.cli bench [--all]
 
 ``--sound-font FONT.sf2`` (``serve``, ``train-gandes``, ``eval-metrics
 --family gandes``, ``sim-to-wav``) renders the GAN-DES audio by SF2 sample
@@ -617,6 +618,12 @@ def _cmd_sim_to_wav(args):
     print("\n".join(outs))
 
 
+def _cmd_bench(args):
+    from gandes_tpu_torch import bench
+
+    bench.main((["--all"] if args.all else []) + ["--device", args.device])
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gandes_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -837,6 +844,11 @@ def main(argv=None):
     sp.add_argument("--des-parallel", type=int, default=None)
     sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
     sp.set_defaults(fn=_cmd_eval_metrics)
+
+    sp = sub.add_parser("bench", help="run the headline benchmark (gandes_tpu_torch/bench.py)")
+    sp.add_argument("--all", action="store_true", help="add the perf table's rows")
+    sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    sp.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -11,7 +11,13 @@ feature extractors (`GAN_DES/util.py:7-61`) without librosa/torchaudio:
   floor is relative to the global max; dynamic hop
   ``len(wav) // (mel_length - 1)`` with the wave cropped to
   ``mel_length * hop`` (reference :40-44 — forcing a fixed frame count).
+* ``melspectrogram_db_ref_max`` / ``melspectrogram_db_from_file`` — the
+  ``_from_file`` variant's ``power_to_db(ref=max)``;
+  ``melspectrogram_power_tensor`` — the ``_maestro`` variant, which returns
+  the *power* mel; ``melspectrogram_db_tensor_from_file``.
 
+The centre padding reflects again and again where the wave is shorter than
+n_fft / 2, as ``jnp.pad(mode="reflect")`` does.
 The filterbank and window are built in numpy (float64, cast to float32).
 Every power mel goes through ``_mel_power_backend``: a CUDA tensor runs the
 hand-written kernel (``ops/mel_power.py``), a CPU tensor its plain version.
@@ -23,7 +29,6 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 _AMIN = 1e-10
 
@@ -93,14 +98,36 @@ def _as_wave(wav) -> torch.Tensor:
     return torch.as_tensor(wav, dtype=torch.float32)
 
 
+def reflect_pad(wav: torch.Tensor, pad: int) -> torch.Tensor:
+    """``wav`` centre-padded by ``pad`` samples at each end as
+    ``np.pad(mode="reflect")`` (and ``jnp.pad``) pads it, for any ``pad``:
+    the reflection repeats, so a position folds into [0, n - 1] with period
+    2 (n - 1) (a one-sample wave repeats its sample). The edges are gathered
+    through that fold, the wave itself copied between them."""
+    n = int(wav.shape[0])
+    if n < 1:
+        raise ValueError("Cannot apply 'reflect' padding to empty axis")
+
+    def edge(lo, hi):
+        idx = torch.arange(lo, hi, device=wav.device)
+        if n == 1:
+            return wav[torch.zeros_like(idx)]
+        idx = torch.remainder(idx, 2 * (n - 1))
+        return wav[torch.where(idx >= n, 2 * (n - 1) - idx, idx)]
+
+    return torch.cat([edge(-pad, 0), wav, edge(n, n + pad)])
+
+
 def power_spectrogram(wav, n_fft: int = 2048, hop_length: int = 512, center: bool = True):
     """|STFT|^2 with hann window; (1 + n_fft//2, n_frames).
 
     ``unfold`` frames both hop < n_fft (overlapping) and hop >= n_fft
-    (the dynamic-hop long-audio case) as strided views."""
+    (the dynamic-hop long-audio case) as strided views. A wave of at most
+    n_fft / 2 samples is padded by repeated reflection, as the JAX
+    package's ``jnp.pad`` pads it."""
     wav = _as_wave(wav)
     if center:
-        wav = F.pad(wav[None, None], (n_fft // 2, n_fft // 2), mode="reflect")[0, 0]
+        wav = reflect_pad(wav, n_fft // 2)
     window = torch.from_numpy(_hann_periodic(n_fft)).to(wav.device)
     frames = wav.unfold(0, n_fft, hop_length) * window
     spec = torch.fft.rfft(frames, dim=-1)
@@ -152,6 +179,44 @@ def melspectrogram_db(wav, sr, n_fft=2048, hop_length=512, n_mels=128, fmin=20,
                        top_db=top_db)
 
 
+def melspectrogram_db_ref_max(wav, sr=44100, n_fft=2048, hop_length=512, n_mels=128,
+                              fmin=20, fmax=8300, top_db=80):
+    """== reference ``get_melspectrogram_db_from_file`` body (util.py:28-34):
+    ``power_to_db(ref=max)``; the reference passes no top_db there, so the
+    default 80 applies."""
+    return power_to_db(melspectrogram(wav, sr, n_fft, hop_length, n_mels, fmin, fmax),
+                       ref="max", top_db=top_db)
+
+
+def _load_mono(file_path, device) -> tuple[torch.Tensor, int]:
+    from gandes_tpu_torch.data.audio import load_wav
+
+    wav, sr = load_wav(file_path, normalize=True, mono=True)
+    return torch.from_numpy(np.ascontiguousarray(wav, dtype=np.float32)).to(device), sr
+
+
+def melspectrogram_db_from_file(file_path, sr=44100, n_fft=2048, hop_length=512,
+                                n_mels=128, fmin=20, fmax=8300, top_db=80, device="cuda"):
+    """== reference ``get_melspectrogram_db_from_file`` (util.py:28-34):
+    load mono at ``sr``, slaney mel, ``power_to_db(ref=max)``, on
+    ``device``. The reference accepts ``top_db`` and never passes it on, so
+    librosa's default 80 always applies. A file at another rate is
+    resampled polyphase, as the JAX package does (librosa.load uses soxr:
+    the same function, not the same bits)."""
+    del top_db  # accepted but unused, like the reference
+    wav, file_sr = _load_mono(file_path, "cpu")
+    if sr is not None and file_sr != sr:
+        from math import gcd
+
+        from scipy.signal import resample_poly
+
+        g = gcd(int(sr), int(file_sr))
+        wav = torch.from_numpy(
+            resample_poly(wav.numpy(), int(sr) // g, int(file_sr) // g).astype(np.float32))
+    return melspectrogram_db_ref_max(wav.to(device), sr or file_sr, n_fft, hop_length,
+                                     n_mels, fmin, fmax)
+
+
 # ------------------------------------------------------ torchaudio variants
 
 
@@ -178,3 +243,24 @@ def melspectrogram_db_tensor(waveform, sr=44100, n_fft=2048, hop_length=512,
     mel = _mel_power_backend(waveform, sr, n_fft, hop_length, n_mels, fmin, fmax,
                              True, False)
     return amplitude_to_db_torch(mel, top_db=top_db)
+
+
+def melspectrogram_power_tensor(waveform, sr=44100, n_fft=2048, hop_length=512,
+                                n_mels=128, fmin=20, fmax=8300, top_db=80,
+                                mel_length=216):
+    """== reference ``get_melspectrogram_db_tensor_maestro`` (util.py:63-87),
+    whose quirk is kept: it takes the dB transform and returns the *power*
+    mel, so the dB result (and ``top_db``) goes unused and is not computed
+    here, as in the JAX package."""
+    waveform = _as_wave(waveform)
+    hop_length = int(waveform.shape[0]) // (mel_length - 1)
+    waveform = waveform[:mel_length * hop_length]
+    return _mel_power_backend(waveform, sr, n_fft, hop_length, n_mels, fmin, fmax,
+                              True, False)
+
+
+def melspectrogram_db_tensor_from_file(file_path, device="cuda"):
+    """== reference ``get_melspectrogram_db_tensor_from_file`` (util.py:89-100):
+    load, mono mean, dynamic-hop torchaudio-style mel dB on ``device``."""
+    waveform, sample_rate = _load_mono(file_path, device)
+    return melspectrogram_db_tensor(waveform, sample_rate)

@@ -18,7 +18,9 @@
 // Design:
 // * grid = one CTA of 256 threads per frame; the frame's samples are read
 //   from the wave at frame*hop + k - n_fft/2 with the reflection in the index
-//   math (no padded copy, no frame matrix), multiplied by the window table
+//   math (no padded copy, no frame matrix; a wave shorter than n_fft/2
+//   reflects again and again, as jnp.pad does, in a second instantiation of
+//   the kernel), multiplied by the window table
 //   and packed as n_fft/2 complex values z[n] = x[2n] + i x[2n+1].
 // * A Stockham autosort FFT of N = n_fft/2 points in shared memory (two
 //   N-point complex ping-pong buffers): radix-4 passes, preceded by one
@@ -52,15 +54,33 @@ __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int e, 
   return make_float2(-w.x, -w.y);
 }
 
+// x indexes the reflect-padded wave as np.pad(mode="reflect") pads it. One
+// reflection at each end covers every wave longer than the pad (n_fft / 2).
+// A shorter wave (kFold) reflects again and again, so a position still
+// outside [0, n) folds with period 2 (n - 1) (both reflections above are
+// symmetries of that fold; a one-sample wave repeats its sample). The fold
+// is a template branch chosen at launch: compiled into every kernel's loads,
+// its 64-bit modulo slowed the long-wave kernel by several per cent even
+// where no sample took it (PERF.md).
+template <bool kFold>
 __device__ __forceinline__ float reflected_sample(const float* __restrict__ wave,
                                                   long long n, long long x) {
-  // x indexes the wave; one reflection at each end (the wrapper keeps
-  // n_fft/2 < n)
   if (x < 0) x = -x;
   if (x >= n) x = 2 * (n - 1) - x;
+  if (kFold && (x < 0 || x >= n)) {
+    if (n == 1) {
+      x = 0;
+    } else {
+      const long long period = 2 * (n - 1);
+      x %= period;
+      if (x < 0) x += period;
+      if (x >= n) x = period - x;
+    }
+  }
   return __ldg(wave + x);
 }
 
+template <bool kFold>
 __global__ void __launch_bounds__(THREADS)
 mel_power_kernel(const float* __restrict__ wave, long long n_samples, int hop, int n_frames,
                  int log2_half, const float* __restrict__ window,
@@ -75,8 +95,8 @@ mel_power_kernel(const float* __restrict__ wave, long long n_samples, int hop, i
   const long long x0 = (long long)frame * hop - N;  // centered: pad = n_fft / 2 = N
 
   for (int i = tid; i < N; i += THREADS) {
-    const float a = reflected_sample(wave, n_samples, x0 + 2 * i);
-    const float b = reflected_sample(wave, n_samples, x0 + 2 * i + 1);
+    const float a = reflected_sample<kFold>(wave, n_samples, x0 + 2 * i);
+    const float b = reflected_sample<kFold>(wave, n_samples, x0 + 2 * i + 1);
     src[i] = make_float2(a * __ldg(window + 2 * i), b * __ldg(window + 2 * i + 1));
   }
   __syncthreads();
@@ -142,29 +162,42 @@ mel_power_kernel(const float* __restrict__ wave, long long n_samples, int hop, i
   }
 }
 
+template <bool kFold>
+int launch(const float* wave, long long n_samples, int hop, int n_frames, int log2_half,
+           const float* window, const float* twiddles, int n_bins, const int* band,
+           const float* weights, int n_mels, float* out, cudaStream_t stream) {
+  const int smem = static_cast<int>(2 * sizeof(float2)) << log2_half;
+  if (smem > SMEM_DEFAULT) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mel_power_kernel<kFold>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mel_power_kernel<kFold><<<n_frames, THREADS, smem, stream>>>(
+      wave, n_samples, hop, n_frames, log2_half, window,
+      reinterpret_cast<const float2*>(twiddles), n_bins, band, weights, n_mels, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shapes the wrapper guarantees: n_fft = 2^(log2_half + 1) in [256, 8192],
-// n_fft / 2 < n_samples, window (n_fft) f32, twiddles (n_fft / 2, 2) f32,
+// n_samples >= 1, window (n_fft) f32, twiddles (n_fft / 2, 2) f32,
 // band (3, n_mels) int32 rows first bin / count / weight offset, every band
 // inside [0, n_bins), n_bins <= n_fft / 2 + 1, out (n_mels, n_frames).
+// A wave of at most n_fft / 2 samples takes the folding kernel.
 // Returns a cudaError_t.
 int mel_power_launch(const float* wave, long long n_samples, int hop, int n_frames,
                      int log2_half, const float* window, const float* twiddles, int n_bins,
                      const int* band, const float* weights, int n_mels, float* out,
                      void* stream) {
-  const int smem = static_cast<int>(2 * sizeof(float2)) << log2_half;
-  if (smem > SMEM_DEFAULT) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mel_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  mel_power_kernel<<<n_frames, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      wave, n_samples, hop, n_frames, log2_half, window,
-      reinterpret_cast<const float2*>(twiddles), n_bins, band, weights, n_mels, out);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_samples > (1LL << log2_half))
+    return launch<false>(wave, n_samples, hop, n_frames, log2_half, window, twiddles, n_bins,
+                         band, weights, n_mels, out, s);
+  return launch<true>(wave, n_samples, hop, n_frames, log2_half, window, twiddles, n_bins,
+                      band, weights, n_mels, out, s);
 }
 
 const char* mel_power_error_string(int err) {

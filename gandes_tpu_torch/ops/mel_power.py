@@ -123,8 +123,12 @@ def kernel() -> _Kernel:
 def mel_power_cuda(wav: torch.Tensor, sr, n_fft=2048, hop_length=512, n_mels=128,
                    fmin=20, fmax=8300, htk=True, norm_slaney=False):
     """Power mel (n_mels, n_frames) from the CUDA kernel; ``wav`` must be a
-    1-D contiguous float32 CUDA tensor and ``n_fft`` a power of two in
-    [256, 8192]. Counts each launch in ``mel_power_cuda.launches``."""
+    1-D contiguous float32 CUDA tensor of at least one sample (a wave
+    shorter than n_fft / 2 is reflected again and again, as ``jnp.pad``
+    does) and ``n_fft`` a power of two in [256, 8192]: outside that range
+    it raises, where the JAX package's backend falls back to XLA (an
+    intended divergence: a CUDA tensor never takes the plain version).
+    Counts each launch in ``mel_power_cuda.launches``."""
     if not (isinstance(wav, torch.Tensor) and wav.is_cuda):
         raise ValueError("mel_power_cuda takes a CUDA tensor; a CPU tensor takes "
                          "mel_power_reference")
@@ -132,10 +136,11 @@ def mel_power_cuda(wav: torch.Tensor, sr, n_fft=2048, hop_length=512, n_mels=128
         raise ValueError(f"mel_power_cuda takes a 1-D contiguous float32 wave, got "
                          f"{wav.dtype} {tuple(wav.shape)} contiguous={wav.is_contiguous()}")
     n = wav.shape[0]
-    if (not N_FFT_MIN <= n_fft <= N_FFT_MAX or n_fft & (n_fft - 1) or n_fft // 2 >= n
-            or hop_length < 1):
-        raise ValueError(f"unsupported shape: n_fft={n_fft} (a power of two in "
-                         f"[{N_FFT_MIN}, {N_FFT_MAX}]), len={n} (> n_fft/2), hop={hop_length}")
+    if n < 1:
+        raise ValueError("Cannot apply 'reflect' padding to empty axis")
+    if not N_FFT_MIN <= n_fft <= N_FFT_MAX or n_fft & (n_fft - 1) or hop_length < 1:
+        raise ValueError(f"unsupported shape: n_fft={n_fft} (the kernel takes a power of two "
+                         f"in [{N_FFT_MIN}, {N_FFT_MAX}]), hop={hop_length} (>= 1)")
     k = kernel()
     n_frames = 1 + n // hop_length  # centered: (n + n_fft - n_fft) // hop + 1
     device = wav.device

@@ -33,7 +33,8 @@ its input axis is permuted from (h, w, c) to (c, h, w) as the MM-GAN D's
 ``SurrogateState``, and ``roll_surrogate_state_from_flax`` for a
 ``RollSurrogate``'s (its conv kernels HWIO to OIHW; ``fc1``'s rows for the
 flattened conv map permuted from (h, w, c) to (c, h, w), the 64 rows of the
-vector branch after them unchanged).
+vector branch after them unchanged). ``simnn_state_dict_from_flax`` maps
+the experimental ``SimNN``'s params (``fc1``'s rows permuted the same way).
 
 Orbax checkpoint directories need JAX to read; the crossing for weights
 trained there is ``python -m gandes_tpu.cli export-torch --model gandes``
@@ -244,3 +245,28 @@ def roll_surrogate_state_from_flax(s_state, cfg):
                            for t in (adam.mu, adam.nu)])
     port.step = int(s_state.step)
     return port
+
+
+def simnn_state_dict_from_flax(params, n: int, input_hw=(64, 64)) -> dict:
+    """A JAX ``SimNN``'s params (``Conv_0``, ``Conv_1``, ``Dense_0``,
+    ``Dense_1``) as ``SimNN(n, input_hw)``'s ``conv1``, ``conv2``, ``fc1``,
+    ``fc2``: conv kernels HWIO to OIHW, dense kernels transposed, and
+    ``fc1``'s rows (the flattened conv map) permuted from flax's (h, w, c)
+    order to torch's (c, h, w)."""
+    sd = {}
+    for i, name in enumerate(["conv1", "conv2"]):
+        k = np.asarray(params[f"Conv_{i}"]["kernel"])  # (kh, kw, in, out)
+        sd[f"{name}.weight"] = _t(k.transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = _t(params[f"Conv_{i}"]["bias"])
+    k = np.asarray(params["Dense_0"]["kernel"])  # (h*w*c, 512), NHWC flatten
+    c = np.asarray(params["Conv_1"]["kernel"]).shape[3]
+    h, w = input_hw[0] // 4, input_hw[1] // 4
+    out = k.shape[1]
+    sd["fc1.weight"] = _t(k.reshape(h, w, c, out).transpose(3, 2, 0, 1).reshape(out, c * h * w))
+    sd["fc1.bias"] = _t(params["Dense_0"]["bias"])
+    fc2 = np.asarray(params["Dense_1"]["kernel"])
+    if fc2.shape[1] != n * n + 4 * n:
+        raise ValueError(f"Dense_1 has {fc2.shape[1]} outputs, SimNN({n}) has {n * n + 4 * n}")
+    sd["fc2.weight"] = _t(fc2.T)
+    sd["fc2.bias"] = _t(params["Dense_1"]["bias"])
+    return sd

@@ -77,13 +77,39 @@ def test_mel_power_cuda_refuses_what_the_kernel_does_not_take(cuda):
         mel_power_cuda(wav.double(), SR)
     with pytest.raises(ValueError):
         mel_power_cuda(wav[::2], SR)
-    with pytest.raises(ValueError):
-        mel_power_cuda(wav[:512], SR)  # shorter than the reflect pad
+    with pytest.raises(ValueError, match="empty axis"):
+        mel_power_cuda(wav[:0], SR)
     launches = mel_power_cuda.launches
-    for n_fft in (2016, 128, 16384):  # not a power of two; outside [256, 8192]
-        with pytest.raises(ValueError):
+    # not a power of two; outside [256, 8192]: an intended divergence from the
+    # JAX backend, which falls back to XLA there (ROADMAP.md)
+    for n_fft in (2016, 128, 16384):
+        with pytest.raises(ValueError, match=r"power of two in \[256, 8192\]"):
             mel_power_cuda(wav, SR, n_fft=n_fft)
     assert mel_power_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 216, 300, 864, 900, 1024, 1025, 1080])
+def test_mel_power_cuda_short_waves_match_plain(cuda, n):
+    """Waves shorter than the n_fft / 2 reflect pad (melspectrogram_db_tensor
+    of 300-1,025 samples crops to 216-1,080): the kernel folds the
+    reflection again and again, as the plain version and jnp.pad do."""
+    wav = _wave(n, cuda, seed=4)
+    hop = max(1, n // 215)
+    launches = mel_power_cuda.launches
+    out = mel_power_cuda(wav, SR, hop_length=hop)
+    ref = mel_power_reference(wav, SR, hop_length=hop)
+    torch.cuda.synchronize()
+    assert mel_power_cuda.launches == launches + 1
+    assert out.shape == ref.shape == (128, 1 + n // hop)
+    torch.testing.assert_close(out, ref, rtol=2e-3, atol=1e-4)
+    torch.testing.assert_close(amplitude_to_db_torch(out), amplitude_to_db_torch(ref),
+                               rtol=0, atol=0.05)
+    if n in (300, 900, 1024, 1025):
+        db = melspectrogram_db_tensor(wav)
+        assert db.shape == (128, 217) and mel_power_cuda.launches == launches + 2
+        torch.testing.assert_close(db.cpu(), melspectrogram_db_tensor(wav.cpu()), rtol=0,
+                                   atol=0.05)
 
 
 # (n_fft, hop, n, fmax): every FFT length's pass structure (odd and even

@@ -149,6 +149,21 @@ def test_kernel_tables_are_their_float64_formulas(n_fft):
     np.testing.assert_array_equal(torch_mel._hann_periodic(n_fft), hann.astype(np.float32))
 
 
+def _kernel_fold(x, n):
+    """csrc/mel_power.cu's ``reflected_sample`` index arithmetic: one
+    reflection at each end, then, for a position still outside [0, n), C's
+    truncating ``%`` by the period and one more reflection."""
+    x = np.abs(x)
+    x = np.where(x >= n, 2 * (n - 1) - x, x)
+    if n == 1:
+        return np.zeros_like(x)
+    period = 2 * (n - 1)
+    out = np.fmod(x, period)  # C's % (truncation toward zero)
+    out = np.where(out < 0, out + period, out)
+    out = np.where(out >= n, period - out, out)
+    return np.where((x >= 0) & (x < n), x, out)
+
+
 def _kernel_model(wav, hop, n_fft, htk, norm_slaney):
     """float64 model of the CUDA kernel's steps on its own tables: reflected
     frame reads, window, packing as n_fft/2 complex values, their FFT
@@ -156,9 +171,7 @@ def _kernel_model(wav, hop, n_fft, htk, norm_slaney):
     W^(k+N) = -W^k), power of the bins below n_bins, sparse projection."""
     n, N = len(wav), n_fft // 2
     n_frames = 1 + n // hop
-    idx = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :] - N
-    idx = np.abs(idx)
-    idx = np.where(idx >= n, 2 * (n - 1) - idx, idx)
+    idx = _kernel_fold(np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :] - N, n)
     x = wav.astype(np.float64)[idx] * torch_mel._hann_periodic(n_fft).astype(np.float64)
     Z = np.fft.fft(x[:, 0::2] + 1j * x[:, 1::2], axis=1)
     band, weights, n_bins = compact_filterbank(SR, n_fft, 128, 20, 8300, htk, norm_slaney)
@@ -175,7 +188,8 @@ def _kernel_model(wav, hop, n_fft, htk, norm_slaney):
     return out
 
 
-@pytest.mark.parametrize("hop,n,htk,norm_slaney", CASES)
+@pytest.mark.parametrize("hop,n,htk,norm_slaney", CASES + [(1, 216, True, False),
+                                                       (4, 864, True, False)])
 def test_kernel_model_matches_reference_and_jax(hop, n, htk, norm_slaney):
     """Pins the post-processing formula and the sparse projection that
     csrc/mel_power.cu implements, against the plain version and the JAX
@@ -203,3 +217,83 @@ def test_kernel_entry_point_raises_on_cpu_tensors():
     out = torch_mel._mel_power_backend(wav, SR, 2048, 512, 128, 20, 8300, True, False)
     np.testing.assert_array_equal(out.numpy(), mel_power_reference(wav, SR).numpy())
     assert mel_power_cuda.launches == launches
+
+
+# ---------------------------------------------- waves shorter than n_fft / 2
+
+# melspectrogram_db_tensor crops a wave to 216 * (len // 215) samples: 300 and
+# 1,024 samples leave 216 and 864, 900 and 1,025 leave 864 and 1,080, every
+# one of them shorter than the 1,024-sample reflect pad
+SHORT = [300, 900, 1024, 1025]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 216, 1024, 1025, 3000])
+@pytest.mark.parametrize("pad", [1, 4, 1024, 4096])
+def test_reflect_pad_is_numpys(n, pad):
+    """``jnp.pad``/``np.pad(mode='reflect')`` reflect again and again; the
+    port's pad equals it at every length, bitwise, and equals the single
+    reflection of ``F.pad`` wherever that one applies (pad < n)."""
+    wav = _wave(n, seed=n)
+    ours = torch_mel.reflect_pad(torch.from_numpy(wav), pad).numpy()
+    np.testing.assert_array_equal(ours, np.pad(wav, (pad, pad), mode="reflect"))
+    if n >= 216:  # jnp.pad folds in a loop of pad / n reflections: seconds at n < 10
+        np.testing.assert_array_equal(ours, np.asarray(jax_mel.jnp.pad(wav, (pad, pad),
+                                                                       mode="reflect")))
+    if pad < n:
+        single = torch.nn.functional.pad(torch.from_numpy(wav)[None, None], (pad, pad),
+                                         mode="reflect")[0, 0]
+        np.testing.assert_array_equal(ours, single.numpy())
+
+
+@pytest.mark.parametrize("n", SHORT)
+def test_short_wave_mel_db_tensor_matches_jax(n):
+    wav = _wave(n, seed=5)
+    ours = torch_mel.melspectrogram_db_tensor(torch.from_numpy(wav), sr=SR).numpy()
+    ref = np.asarray(jax_mel.melspectrogram_db_tensor(wav, sr=SR, use_pallas=False))
+    assert ours.shape == ref.shape == (128, 217)
+    np.testing.assert_allclose(ours, ref, atol=DB_ATOL)
+    hop = n // 215
+    crop = wav[:216 * hop]
+    power = mel_power_reference(torch.from_numpy(crop), SR, hop_length=hop).numpy()
+    kernel = np.asarray(mel_power_pallas(crop, SR, hop_length=hop, interpret=True))
+    np.testing.assert_allclose(power, kernel, rtol=RTOL, atol=ATOL)
+
+
+def test_one_sample_and_empty_waves_match_jax():
+    """One sample: the pad repeats it, as ``jnp.pad`` does, one frame out.
+    No sample (or a wave too short for a hop of 1): both packages raise
+    ValueError."""
+    one = np.array([0.25], np.float32)
+    ours = torch_mel.power_spectrogram(torch.from_numpy(one), n_fft=2048, hop_length=512)
+    ref = np.asarray(jax_mel.power_spectrogram(one, n_fft=2048, hop_length=512))
+    assert ours.shape == ref.shape == (1025, 1)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=RTOL, atol=ATOL)
+    for n in (0, 100):
+        wav = _wave(n)
+        with pytest.raises(ValueError):
+            jax_mel.melspectrogram_db_tensor(wav, sr=SR, use_pallas=False)
+        with pytest.raises(ValueError, match="empty axis"):
+            torch_mel.melspectrogram_db_tensor(torch.from_numpy(wav), sr=SR)
+
+
+@pytest.mark.parametrize("n_fft", [128, 2000, 16384])
+def test_plain_version_outside_the_kernels_n_fft_range_matches_jax(n_fft):
+    """K2 takes powers of two in [256, 8192] and raises on a CUDA tensor
+    outside them; the JAX backend falls back to XLA there. The port's plain
+    version (the CPU's path) still matches the JAX package at any n_fft."""
+    wav = _wave(2 * SR, seed=6)
+    ours = mel_power_reference(torch.from_numpy(wav), SR, n_fft=n_fft, hop_length=700).numpy()
+    s = jax_mel.power_spectrogram(wav, n_fft=n_fft, hop_length=700)
+    ref = np.asarray(jax_mel._mel_project(s, SR, n_fft, 128, 20, 8300, True, False))
+    assert ours.shape == ref.shape == (128, 1 + 2 * SR // 700)
+    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 216, 1024, 1025])
+def test_kernel_fold_is_numpys_reflect_pad(n):
+    """The kernel's index arithmetic lands on np.pad(mode='reflect')'s
+    sample for every position of the centred frames' span."""
+    x = np.arange(-4096, n + 4096)
+    idx = _kernel_fold(x, n)
+    assert ((idx >= 0) & (idx < n)).all()
+    np.testing.assert_array_equal(idx, np.pad(np.arange(n), (4096, 4096), mode="reflect"))
