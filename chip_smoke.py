@@ -180,7 +180,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               K2's launches of these paths are added to the ``kernels``
               line's. ``python3 chip_smoke.py --only sf2`` runs the device,
               build and sf2 phases alone (``--only mesh``: device, build,
-              pickle and mesh).
+              pickle and mesh; ``--only examples``: device, build and
+              examples).
 15. train_bf16 — ``compute_dtype='bf16'`` at full width on ``cuda``.
               MM-GAN (B = 16, ``des_parallel=16``, phase ``pickle``'s
               windows): ``none`` 2 epochs of 3 batches + 1 resumed against 3
@@ -258,6 +259,28 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               backend on the card. The fused step with
               ``callback_device=mesh`` under (2, 1): bitwise the sharded
               two-phase step.
+23. examples — the four harnesses of ``gandes_tpu_torch/examples`` through
+              their ``run(...)`` on ``cuda``, each one's stdout kept in a log
+              and its result line printed: ``ingest_bench`` at the JAX
+              harness's defaults (200 files of 6 concatenated sim pieces,
+              ``workers`` = the CPU count): the three pickles identical (the
+              harness raises otherwise), K1 ceil(files / 8) times in each
+              fast mode and never in the sequential one;
+              ``train_surrogate_demo`` at ``24 24 surrogate 1e-4`` (144
+              steps): finite losses, both gaps, the failed sims of the eval
+              and of training; ``train_gandes_demo`` at 16 nets, ``reinforce``
+              lr 1e-3, d_lr 1e-5, B = 16, steps cut to 16: K2's launches
+              (counter set to 0 just before, read just after) equal to the
+              real slices (eval pool and training set) plus the clips,
+              counted apart from the kernel; ``ref_schedule_run`` on one
+              256-net chunk (~1,100 windows), 32 steps an epoch, epoch 1 and
+              then a call to epoch 2 that resumes from the epoch-1 checkpoint:
+              s/step and the DONE lines. Then K1 bitwise against its plain
+              version at the ingest's densest 8-file launch, and K2 against
+              its plain version (the phase ``kernel`` tolerances) on one
+              training clip of the GAN-DES demo, each timed as phase
+              ``kernel`` times it. ``python3 chip_smoke.py --only examples``
+              runs the device, build and examples phases alone.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Bounds use the H100 SXM's published
@@ -407,18 +430,65 @@ def phase_build():
         raise RuntimeError("native DES core failed to build (g++)")
 
 
+def _mel_row(label, wav, hop, htk=True, slaney=False, sr=44100, n_fft=2048):
+    """K2 against its plain version on the card wave ``wav`` at ``hop``:
+    rtol 2e-3 / atol 1e-4 in power, 0.05 dB after ``amplitude_to_db_torch``,
+    two launches bitwise equal; event, device, plain and (above the 1,024-
+    sample reflect pad torch.stft refuses) library times, and the bound."""
+    import torch
+
+    from gandes_tpu_torch.music.mel import amplitude_to_db_torch, mel_filterbank
+    from gandes_tpu_torch.ops.mel_power import kernel, mel_power_cuda, mel_power_reference
+
+    n = int(wav.shape[0])
+    kw = dict(n_fft=n_fft, hop_length=hop, n_mels=128, fmin=20, fmax=8300, htk=htk,
+              norm_slaney=slaney)
+    ref = mel_power_reference(wav, sr, **kw)
+    out = mel_power_cuda(wav, sr, **kw)
+    repeat_equal = bool(torch.equal(out, mel_power_cuda(wav, sr, **kw)))
+    torch.cuda.synchronize()
+    if out.shape != ref.shape:
+        raise AssertionError(f"{label}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    err = (out - ref).abs()
+    ok_power = bool(torch.all(err <= 1e-4 + 2e-3 * ref.abs()))
+    db_err = float((amplitude_to_db_torch(out) - amplitude_to_db_torch(ref)).abs().max())
+    fb = torch.from_numpy(mel_filterbank(sr, n_fft, 128, 20, 8300, htk, slaney)).cuda()
+    window = torch.hann_window(n_fft, periodic=True, device="cuda")
+
+    def library():
+        spec = torch.stft(wav, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                          return_complex=True)
+        return fb @ spec.abs().square()
+
+    ms = cuda_ms(lambda: mel_power_cuda(wav, sr, **kw))
+    kernel_ms, traced = device_ms(lambda: mel_power_cuda(wav, sr, **kw), "mel_power_kernel")
+    plain_ms = cuda_ms(lambda: mel_power_reference(wav, sr, **kw))
+    # torch.stft's reflect pad refuses a pad as long as the wave
+    library_ms = cuda_ms(library) if n > n_fft // 2 else None
+    frames = int(out.shape[1])
+    # the device memory K2's constants hold for this n_fft and filterbank
+    k = kernel()
+    consts = (*k.tables(n_fft, wav.device),
+              *k.filterbank(sr, n_fft, 128, 20, 8300, htk, slaney, wav.device)[:2])
+    bound_ms, bound_by = mel_bound_ms(n, hop, frames, int(torch.count_nonzero(fb)), n_fft, 128)
+    return {"name": "mel_power", "case": label, "samples": n, "hop": hop,
+            "frames": frames, "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / ref.abs().clamp(min=1e-30)).max()),
+            "db_err": db_err, "repeat_equal": repeat_equal,
+            "ok": ok_power and db_err <= 0.05 and repeat_equal, "ms": ms,
+            "device_ms": kernel_ms, "traced_launches": traced, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "below_library": None if library_ms is None else ms < library_ms,
+            "constants_bytes": sum(t.numel() * t.element_size() for t in consts)}
+
+
 def phase_kernel():
     import numpy as np
     import torch
 
-    from gandes_tpu_torch.music.mel import (
-        amplitude_to_db_torch,
-        mel_filterbank,
-        melspectrogram_db_tensor,
-    )
-    from gandes_tpu_torch.ops.mel_power import kernel, mel_power_cuda, mel_power_reference
+    from gandes_tpu_torch.music.mel import melspectrogram_db_tensor
 
-    sr, n_fft = 44100, 2048
+    sr = 44100
     # (label, samples, hop, htk, norm_slaney): the fixed-hop cases of the
     # JAX package's kernel tests, the blank clip's slaney variant, and the
     # serve path's dynamic hop len // 215 at pow2 buckets up to the synth's
@@ -437,46 +507,7 @@ def phase_kernel():
         t = np.arange(n) / sr
         wav_np = (0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n)).astype(np.float32)
         wav = torch.from_numpy(wav_np).cuda()
-        kw = dict(n_fft=n_fft, hop_length=hop, n_mels=128, fmin=20, fmax=8300, htk=htk,
-                  norm_slaney=slaney)
-        ref = mel_power_reference(wav, sr, **kw)
-        out = mel_power_cuda(wav, sr, **kw)
-        repeat_equal = bool(torch.equal(out, mel_power_cuda(wav, sr, **kw)))
-        torch.cuda.synchronize()
-        if out.shape != ref.shape:
-            raise AssertionError(f"{label}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
-        err = (out - ref).abs()
-        ok_power = bool(torch.all(err <= 1e-4 + 2e-3 * ref.abs()))
-        db_err = float((amplitude_to_db_torch(out) - amplitude_to_db_torch(ref)).abs().max())
-        fb = torch.from_numpy(mel_filterbank(sr, n_fft, 128, 20, 8300, htk, slaney)).cuda()
-        window = torch.hann_window(n_fft, periodic=True, device="cuda")
-
-        def library():
-            spec = torch.stft(wav, n_fft, hop, window=window, center=True, pad_mode="reflect",
-                              return_complex=True)
-            return fb @ spec.abs().square()
-
-        ms = cuda_ms(lambda: mel_power_cuda(wav, sr, **kw))
-        kernel_ms, traced = device_ms(lambda: mel_power_cuda(wav, sr, **kw), "mel_power_kernel")
-        plain_ms = cuda_ms(lambda: mel_power_reference(wav, sr, **kw))
-        # torch.stft's reflect pad refuses a pad as long as the wave
-        library_ms = cuda_ms(library) if n > n_fft // 2 else None
-        frames = int(out.shape[1])
-        # the device memory K2's constants hold for this n_fft and filterbank
-        k = kernel()
-        consts = (*k.tables(n_fft, wav.device),
-                  *k.filterbank(sr, n_fft, 128, 20, 8300, htk, slaney, wav.device)[:2])
-        bound_ms, bound_by = mel_bound_ms(n, hop, frames, int(torch.count_nonzero(fb)), n_fft,
-                                          128)
-        row = {"phase": "kernel", "name": "mel_power", "case": label, "samples": n, "hop": hop,
-               "frames": frames, "max_abs_err": float(err.max()),
-               "max_rel_err": float((err / ref.abs().clamp(min=1e-30)).max()),
-               "db_err": db_err, "repeat_equal": repeat_equal,
-               "ok": ok_power and db_err <= 0.05 and repeat_equal, "ms": ms,
-               "device_ms": kernel_ms, "traced_launches": traced, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "below_library": None if library_ms is None else ms < library_ms,
-               "constants_bytes": sum(t.numel() * t.element_size() for t in consts)}
+        row = {"phase": "kernel", **_mel_row(label, wav, hop, htk, slaney)}
         if label.startswith("short_"):
             # melspectrogram_db_tensor of the same wave (cropped to 216 hops)
             # on the card vs on the CPU
@@ -538,11 +569,41 @@ def _midi_order_events(n_files=8, sample_size=300):
         return pad_file_events([_extract_file_events((f, sample_size, 50)) for f in files])
 
 
-def phase_kernel_roll():
+def _roll_row(label, events, T, start, timed):
+    """K1 against its plain version on the numpy events ``(notes, ons, offs,
+    vels)``: bitwise (``torch.equal``), two launches bitwise equal; with
+    ``timed`` the event, device and plain times and the bound."""
     import numpy as np
     import torch
 
     from gandes_tpu_torch.ops.roll_rasterize import rasterize_cuda, rasterize_events_reference
+
+    ev = [torch.from_numpy(a).cuda() for a in events]
+    B, E = ev[0].shape
+    out = rasterize_cuda(*ev, num_steps=T, start=start)
+    again = rasterize_cuda(*ev, num_steps=T, start=start)
+    ref = rasterize_events_reference(*ev, num_steps=T, start=start)
+    torch.cuda.synchronize()
+    valid = events[0] >= 0
+    row = {"name": "roll_rasterize", "case": label, "B": B, "E": E, "T": T, "start": start,
+           "equal": bool(torch.equal(out, ref)), "repeat_equal": bool(torch.equal(out, again)),
+           "max_abs_err": float((out - ref).abs().max()), "cells_set": int(ref.count_nonzero()),
+           "valid_events": int(valid.sum()),
+           "ons_sorted": bool(all((np.diff(o[v]) >= 0).all()
+                                  for o, v in zip(events[1], valid)))}
+    if timed:
+        row["ms"] = cuda_ms(lambda: rasterize_cuda(*ev, num_steps=T, start=start))
+        row["device_ms"], row["traced_launches"] = device_ms(
+            lambda: rasterize_cuda(*ev, num_steps=T, start=start), "roll_rasterize_kernel")
+        row["plain_ms"] = cuda_ms(lambda: rasterize_events_reference(
+            *ev, num_steps=T, start=start))
+        row["bound_ms"], row["bound_by"] = roll_bound_ms(events[0], T)
+        row["library_ms"] = None
+    return row
+
+
+def phase_kernel_roll():
+    import numpy as np
 
     last_writer = (np.array([[60, 60, 60, 60, 64, 64]], np.int32),
                    np.array([[10, 10, 10, 10, 5, 5]], np.int32),
@@ -567,28 +628,7 @@ def phase_kernel_roll():
              ("bench_roll", _roll_events(16, 512, 50, 100, 0), 50, 100, True)]
     rows = []
     for label, events, T, start, timed in cases:
-        ev = [torch.from_numpy(a).cuda() for a in events]
-        B, E = ev[0].shape
-        out = rasterize_cuda(*ev, num_steps=T, start=start)
-        again = rasterize_cuda(*ev, num_steps=T, start=start)
-        ref = rasterize_events_reference(*ev, num_steps=T, start=start)
-        torch.cuda.synchronize()
-        valid = events[0] >= 0
-        row = {"phase": "kernel", "name": "roll_rasterize", "case": label, "B": B, "E": E,
-               "T": T, "start": start, "equal": bool(torch.equal(out, ref)),
-               "repeat_equal": bool(torch.equal(out, again)),
-               "max_abs_err": float((out - ref).abs().max()), "cells_set": int(ref.count_nonzero()),
-               "valid_events": int(valid.sum()),
-               "ons_sorted": bool(all((np.diff(o[v]) >= 0).all()
-                                      for o, v in zip(events[1], valid)))}
-        if timed:
-            row["ms"] = cuda_ms(lambda: rasterize_cuda(*ev, num_steps=T, start=start))
-            row["device_ms"], row["traced_launches"] = device_ms(
-                lambda: rasterize_cuda(*ev, num_steps=T, start=start), "roll_rasterize_kernel")
-            row["plain_ms"] = cuda_ms(lambda: rasterize_events_reference(
-                *ev, num_steps=T, start=start))
-            row["bound_ms"], row["bound_by"] = roll_bound_ms(events[0], T)
-            row["library_ms"] = None
+        row = {"phase": "kernel", **_roll_row(label, events, T, start, timed)}
         emit(row)
         rows.append(row)
         if not (row["equal"] and row["repeat_equal"]):
@@ -3585,6 +3625,246 @@ def phase_mesh(work_dir):
     return gd["k2_launches_rank0"]
 
 
+def _densest_launch(extracted, chunk=8):
+    """The events of the pickler's densest launch: the ``chunk`` files of
+    ``extracted`` (in the pickler's grouping) whose padded E is largest."""
+    from gandes_tpu_torch.data.datasets import pad_file_events
+
+    chunks = [extracted[i:i + chunk] for i in range(0, len(extracted), chunk)]
+    return pad_file_events(max(chunks, key=lambda grp: max(len(e[0]) for e in grp)))
+
+
+def _clip_wave(audio):
+    """A GAN-DES clip's render as its mel takes it: the int16 round trip of
+    ``bridge/gandes_decode.py``, cropped to 216 dynamic hops of ``len //
+    215``. Returns (wave, hop)."""
+    import torch
+
+    q = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16).to(torch.float32) / 32768.0
+    hop = int(q.shape[0]) // 215
+    return q[:216 * hop].contiguous(), hop
+
+
+def phase_examples(work_dir):
+    """Phase 23 (module docstring). Returns (K2, K1) launches on the
+    harnesses' paths."""
+    import contextlib
+    import io
+    import pickle
+    import random
+    from unittest import mock
+
+    import numpy as np
+
+    from gandes_tpu_torch.bridge import gandes_decode
+    from gandes_tpu_torch.data import datasets
+    from gandes_tpu_torch.examples import (
+        ingest_bench,
+        ref_schedule_run,
+        train_gandes_demo,
+        train_surrogate_demo,
+    )
+    from gandes_tpu_torch.ops.mel_power import mel_power_cuda
+    from gandes_tpu_torch.ops.roll_rasterize import rasterize_cuda
+    from gandes_tpu_torch.train import gandes_loop, mmgan_loop
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "examples")
+    failures, rows, logs = [], {}, {}
+    counted = {"slices": 0, "clips": 0, "failed": 0, "seen": 0, "audio": None,
+               "in_training": False, "extracted": None, "split": [], "t_mode": 0.0}
+    real = {"getitem": datasets.MaestroDatasetGanDes.__getitem__,
+            "m2w": gandes_decode.matrix_to_wav, "mel": gandes_decode._mel_from_device_audio,
+            "m2m": mmgan_loop.matrix_to_midi, "raster": datasets._rasterize_file_batch,
+            "train": gandes_loop.train_gandes, "pickle": datasets.build_window_pickle}
+
+    # independent counts of what the harnesses ran: the real slices and the
+    # clips each mel call took (K2 once each), the MM-GAN loop's failed
+    # sims, the pickler's per-file events, one training clip's audio
+    def getitem(self, index):
+        out = real["getitem"](self, index)
+        counted["slices"] += int(out.shape[0])
+        return out
+
+    def m2w(*a, **k):
+        out = real["m2w"](*a, **k)
+        counted["clips"] += int(out.shape[0])
+        return out
+
+    def mel(audio, sr):
+        if counted["audio"] is None and counted["in_training"]:
+            counted["audio"] = audio.detach().clone()
+        return real["mel"](audio, sr)
+
+    def train(*a, **k):
+        counted["in_training"] = True
+        try:
+            return real["train"](*a, **k)
+        finally:
+            counted["in_training"] = False
+
+    def m2m(*a, **k):
+        rolls, failed = real["m2m"](*a, **k)
+        counted["failed"] += int(failed)
+        counted["seen"] += len(rolls)
+        return rolls, failed
+
+    def pickle_mode(*a, **k):
+        counted["t_mode"] = time.perf_counter()
+        return real["pickle"](*a, **k)
+
+    def raster(extracted, *a, **k):
+        # the fast modes parse every file (a process pool in workers mode)
+        # before their first K1 launch; the rasterize time is the time spent
+        # inside the batches' generator (K1, the copies back)
+        counted["extracted"] = extracted
+        split = {"parse_s": time.perf_counter() - counted["t_mode"], "rasterize_s": 0.0}
+        counted["split"].append(split)
+        batches = real["raster"](extracted, *a, **k)
+
+        def timed():
+            while True:
+                t = time.perf_counter()
+                try:
+                    item = next(batches)
+                except StopIteration:
+                    return
+                finally:
+                    split["rasterize_s"] += time.perf_counter() - t
+                yield item
+
+        return timed()
+
+    def harness(name, fn):
+        """Run one harness with its stdout kept in a log; return its value
+        and wall seconds."""
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            value = fn()
+        logs[name] = buf.getvalue()
+        with open(os.path.join(root, f"{name}.log"), "w") as f:
+            f.write(logs[name])
+        return value, round(time.perf_counter() - t, 2)
+
+    os.makedirs(root)
+    with contextlib.ExitStack() as patches:
+        for owner, name, fn in ((datasets.MaestroDatasetGanDes, "__getitem__", getitem),
+                                (gandes_decode, "matrix_to_wav", m2w),
+                                (gandes_loop, "matrix_to_wav", m2w),
+                                (gandes_decode, "_mel_from_device_audio", mel),
+                                (mmgan_loop, "matrix_to_midi", m2m),
+                                (datasets, "_rasterize_file_batch", raster),
+                                (datasets, "build_window_pickle", pickle_mode),
+                                (gandes_loop, "train_gandes", train)):
+            patches.enter_context(mock.patch.object(owner, name, fn))
+        # 1. ingestion at the JAX harness's defaults (200 files x 6 pieces,
+        # workers = cpu count): K1 in both fast modes
+        rasterize_cuda.launches = 0
+        (summary, k1), s = harness("ingest", lambda: ingest_bench.run(
+            os.path.join(root, "ingest"), device=DEVICE))
+        k1_total = rasterize_cuda.launches
+        extracted = counted["extracted"]
+        n_files = summary["corpus_files"]
+        want = -(-n_files // 8)
+        fast = [m for m in k1 if m != "sequential"]
+        rows["ingest"] = {"summary": summary, "k1_launches": k1, "s": s,
+                          "workers": os.cpu_count(),
+                          "parse_vs_rasterize_s": dict(zip(fast, counted["split"]))}
+        if k1["sequential"] != 0 or any(k1[m] != want for m in fast) or len(fast) != 2:
+            failures.append(f"ingest: K1 launches {k1}, want {want} per fast mode")
+        if not summary["identical_outputs"]:
+            failures.append("ingest: pickles differ")
+
+        # 2. the MM-GAN outcome demo at out 24 24 surrogate 1e-4 (144 steps)
+        counted.update(failed=0, seen=0)
+        results, s = harness("surrogate_demo", lambda: train_surrogate_demo.run(
+            os.path.join(root, "surrogate_demo"), 24, 24, "surrogate", 1e-4, device=DEVICE))
+        train_line = next(json.loads(ln) for ln in logs["surrogate_demo"].splitlines()
+                          if ln.startswith('{"train_s"'))
+        rows["surrogate_demo"] = {
+            "s": s, **train_line, "steps": results["steps"], "gap_initial": results["gap_initial"],
+            "gap_final": results["gap_final"], "failed_sims_eval": results["failed_sims_eval"],
+            "failed_sims_training": counted["failed"], "sims_training": counted["seen"],
+            "disc_loss_last_epoch": results["disc_loss_last_epoch"],
+            "gen_loss_last_epoch": results["gen_loss_last_epoch"]}
+        curves = results["disc_loss_per_epoch"] + results["gen_loss_per_epoch"]
+        if results["steps"] < 24 or not all(math.isfinite(v) for v in curves):
+            failures.append(f"surrogate demo: {results['steps']} steps, losses {curves[-4:]}")
+
+        # 3. the GAN-DES outcome demo at 16 nets, reinforce lr 1e-3, d_lr
+        # 1e-5, B = 16, steps cut to 16: K2 per real slice and per clip
+        mel_power_cuda.launches = 0
+        counted.update(slices=0, clips=0)
+        random.seed(0)
+        results, s = harness("gandes_demo", lambda: train_gandes_demo.run(
+            os.path.join(root, "gandes_demo"), 16, 16, "reinforce", 1e-3, 1e-5, device=DEVICE))
+        k2 = mel_power_cuda.launches
+        train_line = next(json.loads(ln) for ln in logs["gandes_demo"].splitlines()
+                          if ln.startswith('{"train_s"'))
+        rows["gandes_demo"] = {
+            "s": s, **train_line, "steps": results["steps"], "gap_initial": results["gap_initial"],
+            "gap_final": results["gap_final"], "real_slices": counted["slices"],
+            "clips": counted["clips"], "k2_launches": k2, "failed_sims": None,
+            "disc_loss_last10": results["disc_loss_last10"],
+            "gen_loss_last10": results["gen_loss_last10"]}
+        losses = results["disc_losses"] + results["gen_losses"]
+        if results["steps"] != 16 or not all(math.isfinite(v) for v in losses):
+            failures.append(f"gandes demo: {results['steps']} steps")
+        if k2 <= 0 or k2 != counted["slices"] + counted["clips"]:
+            failures.append(f"gandes demo: K2 launches {k2} != real slices {counted['slices']}"
+                            f" + clips {counted['clips']}")
+        if counted["audio"] is None:
+            failures.append("gandes demo: no training clip reached the mel")
+
+        # 4. the reference schedule on one 256-net chunk (~1,100 windows),
+        # 32 steps an epoch, epoch 1 then a call to epoch 2 that resumes
+        ref_dir = os.path.join(root, "refsched")
+        ref_kw = dict(target_windows=1024, steps_per_epoch=32, device=DEVICE)
+        counted.update(failed=0, seen=0)
+        np.random.seed(0)
+        (_, h1, done1), s1 = harness("refsched_1", lambda: ref_schedule_run.run(
+            ref_dir, 1, **ref_kw))
+        (_, h2, done2), s2 = harness("refsched_2", lambda: ref_schedule_run.run(
+            ref_dir, 2, **ref_kw))
+        with open(os.path.join(ref_dir, "windows.pkl"), "rb") as f:
+            n_windows = len(pickle.load(f))
+        done_lines = [ln for name in ("refsched_1", "refsched_2")
+                      for ln in logs[name].splitlines() if ln.startswith("DONE:")]
+        resumed = ("Loaded model from models/mmgan_64_64_epoch_1" in logs["refsched_2"]
+                   and len(h2["disc"]) == 1 and done2["steps"] == ref_kw["steps_per_epoch"]
+                   and os.path.isdir(os.path.join(ref_dir, "models", "mmgan_64_64_epoch_2"))
+                   and os.path.isfile(os.path.join(ref_dir, "losses",
+                                                   "disc_losses_epoch_2.pkl")))
+        rows["refsched"] = {"s": [s1, s2], "windows": n_windows, "done": done_lines,
+                            "epoch_losses": [
+                                {"disc": float(np.mean(h["disc"][0])),
+                                 "gen": float(np.mean(h["gen"][0]))} for h in (h1, h2)],
+                            "s_per_step": [round(d["wall_s"] / d["steps"], 4)
+                                           for d in (done1, done2)],
+                            "failed_sims": counted["failed"], "sims": counted["seen"],
+                            "resumed_at_epoch_2": resumed}
+        if n_windows < 1024 or done1["steps"] != ref_kw["steps_per_epoch"] or not resumed:
+            failures.append(f"refsched: {n_windows} windows, {done1['steps']} steps, "
+                            f"resumed {resumed}")
+
+    for name, row in rows.items():
+        emit({"phase": "examples", "harness": name, **row})
+    # each kernel against its plain version at this phase's own shapes
+    k1_row = _roll_row("ingest_densest", _densest_launch(extracted), 300, 0, timed=True)
+    k2_row = (_mel_row("gandes_demo_clip", *_clip_wave(counted["audio"]))
+              if counted["audio"] is not None else None)
+    emit({"phase": "examples", "kernel_checks": [k1_row, k2_row],
+          "phase_s": round(time.perf_counter() - t_phase, 2)})
+    if not (k1_row["equal"] and k1_row["repeat_equal"]):
+        failures.append("K1 disagrees with its plain version at the ingest's densest chunk")
+    if k2_row is None or not k2_row["ok"]:
+        failures.append("K2 disagrees with its plain version on a GAN-DES demo clip")
+    if failures:
+        raise AssertionError(f"examples: {failures}")
+    return k2, k1_total
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
@@ -3609,10 +3889,12 @@ def main() -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     phase_build()
-    if sys.argv[1:] in (["--only", "sf2"], ["--only", "mesh"]):
+    if sys.argv[1:] in (["--only", "sf2"], ["--only", "mesh"], ["--only", "examples"]):
         with tempfile.TemporaryDirectory() as work:
             if sys.argv[2] == "sf2":
                 phase_sf2(work)
+            elif sys.argv[2] == "examples":
+                phase_examples(work)
             else:
                 phase_pickle(work)
                 phase_mesh(work)
@@ -3646,6 +3928,9 @@ def main() -> int:
         roll_launches += bench_roll
         phase_demo(work)
         mel_launches += phase_mesh(work)
+        examples_mel, examples_roll = phase_examples(work)
+        mel_launches += examples_mel
+        roll_launches += examples_roll
 
     r = next(row for row in rows if row["case"] == "serve_2^22")  # the serve clips' bucket
     # the pickler's own events for one launch
@@ -3658,8 +3943,9 @@ def main() -> int:
                 # (real slices and each checkpoint's fake clips), the
                 # SF2 paths' (requests, matrix_to_wav, train-gandes), bf16
                 # GAN-DES training's, the traced train-gandes step's,
-                # generate-gandes', the bench's mel row and the GAN-DES
-                # mesh run's rank 0
+                # generate-gandes', the bench's mel row, the GAN-DES
+                # mesh run's rank 0 and the GAN-DES demo's (real slices
+                # and clips)
                 "launches": mel_launches, "max_abs_err": max(x["max_abs_err"] for x in rows),
                 "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

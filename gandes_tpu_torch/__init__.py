@@ -25,6 +25,9 @@ layout so each module's counterpart is found under the same path:
 - ``serve``  — the HTTP generation server; ``cli`` its command line.
 - ``bench``  — the benchmark (``cli bench``); ``demo`` — the end-to-end
                demo script (``python -m gandes_tpu_torch.demo``).
+- ``examples`` — the example harnesses (ingestion at MAESTRO volume, the
+               two training-outcome demos, the reference-schedule run), each
+               ``python -m gandes_tpu_torch.examples.<name>``.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
