@@ -5,8 +5,9 @@ layout so each module's counterpart is found under the same path:
 
 - ``core``   — RNG stream discipline, the event-log codec and the phase
                timer (host copies).
-- ``des``    — the discrete-event simulator; the C++ core is built from the
-               repository's ``native/des_engine.cpp`` into ``_build/``.
+- ``des``    — the discrete-event simulator; the C++ core is built from
+               ``des/csrc/des_engine.cpp`` (the port's copy of the
+               repository's ``native/des_engine.cpp``) into ``_build/``.
 - ``music``  — MIDI codec, log->MIDI generators, piano rolls (host loop and
                the batched rasterizer), beats, the additive synth and mel
                spectrograms (torch).

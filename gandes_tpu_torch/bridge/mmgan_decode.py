@@ -34,7 +34,9 @@ sample from the global stream, and runs the sims on C++ worker threads so
 their wall budgets overlap — deterministic given the starting RNG state
 (when sims terminate by customer count), but a *different* stream than the
 reference's strictly-sequential global-RNG coupling: opt-in for training
-throughput. Non-f32 inputs keep the Python-thread fast path
+throughput. There each sim stops once it has emitted the 5,100 records the
+call stores, since nothing here reads past a log's first 5,001 lines
+(counter ``sims_capped``). Non-f32 inputs keep the Python-thread fast path
 (``_matrix_to_midi_parallel``). Both fast paths decode rolls with
 ``music/native_decode.py`` where it applies.
 """
@@ -314,11 +316,11 @@ def _matrix_to_midi_batch(gen1_output, gen2_output, dim, size, num_aug,
         if res is None:
             return None
         timed_out, events = int(res["timed_out"].sum()), int(res["emitted"].sum())
-        COUNTERS.add(sims_run=B, sims_timed_out=timed_out, des_events=events)
-        s.set(timed_out=timed_out, events=events)
+        capped = int(res["capped"].sum())
+        COUNTERS.add(sims_run=B, sims_timed_out=timed_out, sims_capped=capped,
+                     des_events=events)
+        s.set(timed_out=timed_out, capped=capped, events=events)
 
-    values, ids, servers_l, kinds = res["records"]
-    offsets = res["offsets"]
     midi_rolls = []
     failed = n_decoded = n_skipped = 0
     with span("des.decode") as s:
@@ -339,8 +341,8 @@ def _matrix_to_midi_batch(gen1_output, gen2_output, dim, size, num_aug,
                 midi_rolls.append(output)
                 continue
             n_decoded += 1
-            lo, hi = int(offsets[index]), int(offsets[index + 1])
-            records = (values[lo:hi], ids[lo:hi], servers_l[lo:hi], kinds[lo:hi])
+            n = int(res["stored"][index])
+            records = tuple(a[index, :n] for a in res["records"])
             sim = _BatchSimShim(
                 res["notice_nodes"][index, :n_notices], records,
                 res["emitted"][index])

@@ -19,8 +19,9 @@ recorded only while a ``torch.profiler`` is active (``device_trace``,
 ``SPAN_BUFFER`` spans.
 
 Counters: ``COUNTERS`` holds the process-wide totals of the host stage,
-always on: sims run, timed out (past their watchdog) and failed (raised),
-DES events (event-log lines), rolls decoded and decodes skipped (the
+always on: sims run, timed out (past their watchdog), stopped at their
+record limit (the thread-mode batch call) and failed (raised), DES events
+(event-log lines the engine emitted), rolls decoded and decodes skipped (the
 reference's zero-roll shortcut). The span that did the work carries its
 own increments as attributes.
 """
@@ -40,7 +41,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 SPAN_BUFFER = 65536
 RANGE_PREFIX = "gandes."
-COUNTER_NAMES = ("sims_run", "sims_timed_out", "sims_failed", "des_events",
+COUNTER_NAMES = ("sims_run", "sims_timed_out", "sims_capped", "sims_failed", "des_events",
                  "rolls_decoded", "decodes_skipped")
 
 

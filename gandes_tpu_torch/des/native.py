@@ -1,7 +1,9 @@
 """ctypes bindings + build for the native C++ DES engine.
 
-Builds the repository's ``native/des_engine.cpp`` with g++ on first use
-(cached in this package's ``_build/`` directory, keyed by content hash),
+Builds this package's ``des/csrc/des_engine.cpp`` (a copy of the
+repository's ``native/des_engine.cpp`` whose MM-GAN thread-mode batch stops
+each sim at its record limit) with g++ on first use (cached in this
+package's ``_build/`` directory, keyed by content hash),
 exposes :func:`run_native`, and
 :func:`native_eligible` which gates which Sim configurations the native
 core supports (the rest fall back to the Python engine transparently):
@@ -24,7 +26,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "native", "des_engine.cpp")
+_SRC = os.path.join(_PKG, "des", "csrc", "des_engine.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 _DIST_CODES = {
@@ -175,15 +177,25 @@ def host_batch(gen1, gen2, *, size, num_aug, instrument, watchdog,
     bridge), build the routing tables, run every sim (``n_threads == 1``:
     inline with global-stream routing — bit-identical to the sequential
     parity path; ``> 1``: C++ worker threads with private routing streams,
-    the thread mode's stream discipline).
+    the thread mode's stream discipline, each sim stopping once it has
+    emitted ``record_limit`` records: every reader of the batch reads at
+    most the first 5,001 log lines, and a private stream's later draws
+    reach nothing, so the rolls, failures and the global RNG state are
+    those of sims run to their customer counts).
 
     Returns ``None`` on a decode error (empty repair-candidate row) with
     the global RNG restored, so the caller can replay on the Python path
     and surface the reference's ValueError; otherwise a dict of per-sample
-    arrays (records, line counts, timeout flags, notices, instruments,
-    note levels) with the global RNG advanced identically to the
-    sequential decode+run sequence.
+    arrays (records, line counts, timeout flags, the flags of the sims
+    stopped at ``record_limit``, notices, instruments, note levels) with the
+    global RNG advanced identically to the sequential decode+run sequence.
+    ``records`` are four (B, record_limit) arrays, of which sample ``b``'s
+    first ``stored[b]`` entries are its records. ``emitted`` counts the
+    records a sim emitted, stored or not: a stopped sim's count passes
+    ``record_limit`` by the records of its last event.
     """
+    if record_limit < 0:
+        raise ValueError(f"record_limit must be >= 0, got {record_limit}")
     lib = get_lib()
     B = int(len(gen1))
     dim = size - num_aug
@@ -199,17 +211,19 @@ def host_batch(gen1, gen2, *, size, num_aug, instrument, watchdog,
 
     out_emitted = np.zeros(B, np.int64)
     out_timed_out = np.zeros(B, np.int8)
+    out_capped = np.zeros(B, np.int8)
     out_customers = np.zeros(B, np.int64)
     out_notice_nodes = np.zeros((B, dim), np.int32)
     out_notice_counts = np.zeros(B, np.int64)
     out_instruments = np.zeros((B, dim), np.float64)
     out_note_levels = np.zeros((B, dim), np.float64)
 
-    rec_values = C.POINTER(C.c_double)()
-    rec_ids = C.POINTER(C.c_int64)()
-    rec_servers = C.POINTER(C.c_int32)()
-    rec_kinds = C.POINTER(C.c_uint8)()
-    rec_offsets = np.zeros(B + 1, np.int64)
+    # written by the sims' threads, each into its own samples' rows
+    values = np.empty((B, record_limit), np.float64)
+    ids = np.empty((B, record_limit), np.int64)
+    servers_l = np.empty((B, record_limit), np.int32)
+    kinds = np.empty((B, record_limit), np.uint8)
+    stored = np.zeros(B, np.int64)
     err_index = C.c_int32(-1)
 
     ptr = lambda a: a.ctypes.data_as(C.c_void_p)
@@ -220,11 +234,11 @@ def host_batch(gen1, gen2, *, size, num_aug, instrument, watchdog,
         C.c_double(float(watchdog)), C.c_int64(record_limit),
         C.c_int(int(n_threads)),
         ptr(g_key), C.byref(g_pos), C.byref(g_has_gauss), C.byref(g_gauss),
-        ptr(out_emitted), ptr(out_timed_out), ptr(out_customers),
+        ptr(out_emitted), ptr(out_timed_out), ptr(out_capped), ptr(out_customers),
         ptr(out_notice_nodes), ptr(out_notice_counts),
         ptr(out_instruments), ptr(out_note_levels),
-        C.byref(rec_values), C.byref(rec_ids), C.byref(rec_servers),
-        C.byref(rec_kinds), ptr(rec_offsets), C.byref(err_index),
+        ptr(values), ptr(ids), ptr(servers_l), ptr(kinds), ptr(stored),
+        C.byref(err_index),
     )
     if rc != 0:
         np.random.set_state(snapshot)
@@ -232,25 +246,12 @@ def host_batch(gen1, gen2, *, size, num_aug, instrument, watchdog,
     np.random.set_state(("MT19937", g_key, int(g_pos.value),
                          int(g_has_gauss.value), float(g_gauss.value)))
 
-    total = int(rec_offsets[B])
-    if total > 0:
-        values = np.ctypeslib.as_array(rec_values, shape=(total,)).copy()
-        ids = np.ctypeslib.as_array(rec_ids, shape=(total,)).copy()
-        servers_l = np.ctypeslib.as_array(rec_servers, shape=(total,)).copy()
-        kinds = np.ctypeslib.as_array(rec_kinds, shape=(total,)).copy()
-        lib.des_free_records(rec_values, rec_ids, rec_servers, rec_kinds)
-    else:
-        values = np.zeros(0, np.float64)
-        ids = np.zeros(0, np.int64)
-        servers_l = np.zeros(0, np.int32)
-        kinds = np.zeros(0, np.uint8)
-
     return {
-        "emitted": out_emitted, "timed_out": out_timed_out,
+        "emitted": out_emitted, "timed_out": out_timed_out, "capped": out_capped,
         "customers": out_customers, "notice_nodes": out_notice_nodes,
         "notice_counts": out_notice_counts, "instruments": out_instruments,
         "note_levels": out_note_levels,
-        "records": (values, ids, servers_l, kinds), "offsets": rec_offsets,
+        "records": (values, ids, servers_l, kinds), "stored": stored,
     }
 
 

@@ -28,13 +28,13 @@ requests would interleave those streams.
 Each service counts its requests and their summed latency (``stats``, a
 ``core/profiling.py::Counters``); ``/healthz`` reports them beside
 ``counters``, the process-wide totals of the host stage (``sims_run``,
-``sims_timed_out``, ``sims_failed``, ``des_events``, ``rolls_decoded``,
-``decodes_skipped``). While a ``torch.profiler`` runs in the process, each
-request records spans, which its trace shows as ``gandes.<name>`` ranges:
-``lock_wait`` (the wait for the generation lock), ``request`` (the interval
-``latency_s`` times) and inside it ``generator``, ``des``, ``midi`` and,
-with audio, ``synth``, ``wav`` and ``mel``; then ``http.reply`` (encoding
-and writing the reply).
+``sims_timed_out``, ``sims_capped``, ``sims_failed``, ``des_events``,
+``rolls_decoded``, ``decodes_skipped``). While a ``torch.profiler`` runs in
+the process, each request records spans, which its trace shows as
+``gandes.<name>`` ranges: ``lock_wait`` (the wait for the generation lock),
+``request`` (the interval ``latency_s`` times) and inside it ``generator``,
+``des``, ``midi`` and, with audio, ``synth``, ``wav`` and ``mel``; then
+``http.reply`` (encoding and writing the reply).
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -55,9 +56,13 @@ def test_emit_lines_are_the_root_benchs(args, capsys):
 @pytest.fixture(scope="module")
 def warm():
     """The headline's windows at B = 2 and its warm step for the rows that
-    reuse it (the module-scoped patch keeps B = 2 for them)."""
+    reuse it (the module-scoped patch keeps B = 2 for them). The bench's
+    deadline starts here, as it starts at the command's import: from the
+    test session's import, a late worker would find it spent and measure
+    one window."""
     mp = pytest.MonkeyPatch()
     mp.setattr(bench, "BATCH", 2)
+    mp.setattr(bench, "_T_START", time.monotonic())
     out, seen = {}, []
     rates, flops = bench.bench_torch(iters=2, windows=2, on_window=seen.append,
                                      warm_out=out, device=CPU)

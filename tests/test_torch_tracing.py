@@ -12,6 +12,7 @@ import sys
 import threading
 import time
 import urllib.request
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -164,6 +165,7 @@ def test_a_sim_past_its_watchdog_is_counted(tmp_path, parallel, span_name):
     if parallel:
         (s,) = found
         assert s.attrs["sims"] == B and s.attrs["events"] == grew["des_events"]
+        assert s.attrs["capped"] == grew["sims_capped"] == 0  # cut by the clock first
         (d,) = _new_spans(t0, "des.decode")
         assert d.attrs == {"decoded": 0, "skipped": 0}
     else:
@@ -173,7 +175,9 @@ def test_a_sim_past_its_watchdog_is_counted(tmp_path, parallel, span_name):
 
 def test_counted_decodes_add_up_to_the_sims(tmp_path):
     """With a watchdog that no sim reaches, every sim is decoded or skipped
-    by the reference's zero-roll shortcut, and its span says which."""
+    by the reference's zero-roll shortcut, and its span says which. These
+    sims pass 5,100 records, so the thread-mode batch stops each there: the
+    span's ``capped`` and ``sims_capped`` count all of them."""
     B = 3
     g1, g2 = _inputs(11, B)
     np.random.seed(4)
@@ -190,7 +194,37 @@ def test_counted_decodes_add_up_to_the_sims(tmp_path):
     assert d.attrs == {"decoded": grew["rolls_decoded"], "skipped": grew["decodes_skipped"]}
     (b,) = _new_spans(t0, "des.batch")
     assert b.attrs["events"] == grew["des_events"] > 0
+    assert b.attrs["capped"] == grew["sims_capped"] == B
     assert b.end_ns <= d.start_ns
+
+
+@pytest.mark.parametrize("sims,share", [("long", 100.0), ("cut", 0.0), ("unmarked", None)])
+def test_the_benchmarks_capped_share_reads_the_batch_spans(tmp_path, sims, share):
+    """``portbench``'s ``sim_capped_pct.train`` over a traced thread-mode
+    batch: 100 where every sim passed 5,100 records, 0 where the clock cut
+    them first, and nothing from spans without ``capped`` (a program that
+    does not stop its sims)."""
+    from types import SimpleNamespace
+
+    from portbench import run as bench_run
+
+    B = 2
+    g1, g2 = _inputs(11, B)
+    np.random.seed(4)
+    t0 = time.perf_counter()
+    with _profiler():
+        mmgan_decode.matrix_to_midi(g1, g2, adj_size=(64, 64), start=100, end=150, parallel=2,
+                                    watchdog=0.0 if sims == "cut" else 2.5,
+                                    log_path=str(tmp_path) + "/", out_dir=str(tmp_path / "m"))
+    window = time.perf_counter() - t0
+    (b,) = _new_spans(int(t0 * 1e9), "des.batch")
+    if sims == "unmarked":
+        b = SimpleNamespace(name=b.name, start_ns=b.start_ns, end_ns=b.end_ns,
+                            attrs={k: v for k, v in b.attrs.items() if k != "capped"})
+    run = SimpleNamespace(tracer=SimpleNamespace(t0=t0, trace=SimpleNamespace(window_s=window)))
+    reader = bench_run.load_metric("sim_capped_pct.train")
+    with mock.patch.object(profiling, "spans", return_value=[b]):
+        assert reader.read(run) == share
 
 
 def test_healthz_carries_the_counters_and_a_request_its_spans(tmp_path):
@@ -216,6 +250,7 @@ def test_healthz_carries_the_counters_and_a_request_its_spans(tmp_path):
     assert health["avg_latency_s"] == pytest.approx(reply["latency_s"], abs=1e-4)
     assert set(health["counters"]) == set(COUNTER_NAMES)
     assert health["counters"]["sims_run"] >= 1
+    assert "sims_capped" in health["counters"]
 
     (request,) = _new_spans(t0, "request")
     (wait,) = _new_spans(t0, "lock_wait")
