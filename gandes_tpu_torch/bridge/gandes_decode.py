@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from gandes_tpu_torch.core.profiling import span
-from gandes_tpu_torch.data.audio import save_wav
+from gandes_tpu_torch.data.audio import save_wav, wav_tensor
 from gandes_tpu_torch.des import native
 from gandes_tpu_torch.des.engine import Sim
 from gandes_tpu_torch.music import native_decode
@@ -123,10 +123,17 @@ def _decode_gandes_sample(matrix, size, num_aug, use_same_instrument):
 def _mel_from_device_audio(audio, sample_rate):
     """int16 write/read round trip applied on the audio's device (bit-equal
     to save_wav+load_wav: truncate-toward-zero cast, /32768 normalize), then
-    the dynamic-hop mel — no host transfer of the audio."""
-    q = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
-    q = q.to(torch.float32) / 32768.0
-    return melspectrogram_db_tensor(q, sr=sample_rate)
+    the dynamic-hop mel — no host transfer of the audio — inside the ``mel``
+    span. The span (a profiler range) encloses the call of
+    ``melspectrogram_db_tensor`` (which opens none; its callers do) rather
+    than lying inside it, so that a range an operator's profiler opens
+    around that function stays the innermost one and keeps the kernel's
+    device time (a device-side range covers only the kernels of the
+    innermost host range)."""
+    with span("mel"):
+        q = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
+        q = q.to(torch.float32) / 32768.0
+        return melspectrogram_db_tensor(q, sr=sample_rate)
 
 
 def matrix_to_wav(
@@ -146,14 +153,25 @@ def matrix_to_wav(
     parallel=None,
     write_wav=True,
     sound_font=None,
+    wavs=None,
 ):
+    """The mel-dB spectrograms of ``matrices``, ``[start:end]`` in time, on
+    ``device``. Files, as the reference leaves them: the sim's log under
+    ``log_path`` (sequential path only), ``<out_dir>/midi/output.mid`` and,
+    with ``write_wav``, ``<out_dir>/wav/output_<i>.wav``. ``log_path=None``
+    keeps the log in memory (the first 5,100 records, decoded natively, as
+    in ``parallel`` mode); ``out_dir=None`` writes no file at all.
+    ``wavs``, a list, gets each sample's WAV file (the bytes ``save_wav``
+    writes) as a uint8 tensor on ``device``, with or without files. The
+    decoded samples, the global RNG and every byte rendered are the same
+    either way (for sims that their wall budget does not cut)."""
     num_aug = 5
 
     if parallel and parallel > 1 and native.native_available():
         return _matrix_to_wav_parallel(
             matrices, size, num_aug, use_same_instrument, start, end,
-            log_path, out_dir, sample_rate, number_of_customers,
-            max_sim_time, parallel, write_wav, sound_font, device,
+            out_dir, sample_rate, number_of_customers,
+            max_sim_time, parallel, write_wav, sound_font, device, wavs,
         )
 
     spectrograms = []
@@ -182,35 +200,65 @@ def matrix_to_wav(
             )
             sim.run(number_of_customers=number_of_customers)
 
-            file_path, mid = process_adjsim_log_v1(
-                instruments=instruments, note_levels=note_levels,
-                lines=sim.music_lines(),
-                out_path=os.path.join(out_dir, "midi", "output.mid"),
-                return_mid=True,
-            )
-
-            # bucketed (pow2) render, kept on the device; the mel is taken
-            # over the whole bucket, zero tail included
-            audio, true_len = render_midi(mid, sr=sample_rate, as_tensor=True,
-                                          sound_font=sound_font, device=device)
-            if write_wav:
-                output_file = os.path.join(out_dir, "wav", f"output_{index}.wav")
-                os.makedirs(os.path.dirname(output_file), exist_ok=True)
-                save_wav(output_file, audio[:true_len].cpu().numpy(), sample_rate)
+            audio, true_len = _render_sim(sim, instruments, note_levels, out_dir,
+                                          sample_rate, sound_font, device)
+            wav = _write_wav(audio, true_len, sample_rate, out_dir, write_wav, index, wavs)
             # int16 round trip on the device == reading the written file back
             # (the reference reads the FluidSynth output, :129)
             mel = _mel_from_device_audio(audio, sample_rate)
             length_mel = mel.shape[1]
 
         spectrograms.append(mel)
+        if wavs is not None:
+            wavs.append(wav)
 
     return torch.stack([s[:, start:end] for s in spectrograms])
 
 
+def _write_wav(audio, true_len, sample_rate, out_dir, write_wav, index, wavs):
+    """The sample's WAV: written to ``<out_dir>/wav/output_<index>.wav`` when
+    there is an ``out_dir`` and ``write_wav``, and returned as the file's
+    bytes in a uint8 tensor on the audio's device when ``wavs`` collects
+    them (else None)."""
+    if out_dir is not None and write_wav:
+        output_file = os.path.join(out_dir, "wav", f"output_{index}.wav")
+        os.makedirs(os.path.dirname(output_file), exist_ok=True)
+        save_wav(output_file, audio[:true_len].cpu().numpy(), sample_rate)
+    if wavs is None:
+        return None
+    with span("wav"):
+        return wav_tensor(audio[:true_len], sample_rate)
+
+
+def _render_sim(sim, instruments, note_levels, out_dir, sample_rate, sound_font, device):
+    """A run sim's MIDI decode (written to ``<out_dir>/midi/output.mid``
+    unless ``out_dir`` is None) and its render on ``device``: ``(audio, true
+    length)``, the audio the whole pow2 bucket (the mel is taken over it,
+    zero tail included). Records still in memory (a native run) go through
+    the native decoder, which gives ``process_adjsim_log_v1``'s bytes and
+    the synth's event arrays; otherwise the Python decoder reads the log's
+    lines."""
+    midi_path = None if out_dir is None else os.path.join(out_dir, "midi", "output.mid")
+    res = None
+    if getattr(sim, "_pending_records", None) is not None:
+        with span("midi"):
+            res = native_decode.decode_records_v1(sim, instruments, note_levels, midi_path)
+    if res is not None:
+        with span("synth"):
+            return render_events(res[1], sr=sample_rate, as_tensor=True,
+                                 sound_font=sound_font, device=device)
+    _, mid = process_adjsim_log_v1(
+        instruments=instruments, note_levels=note_levels,
+        lines=sim.music_lines(limit=5001), out_path=midi_path, return_mid=True,
+    )
+    return render_midi(mid, sr=sample_rate, as_tensor=True, sound_font=sound_font,
+                       device=device)
+
+
 def _matrix_to_wav_parallel(matrices, size, num_aug, use_same_instrument,
-                            start, end, log_path, out_dir, sample_rate,
+                            start, end, out_dir, sample_rate,
                             number_of_customers, max_sim_time, parallel,
-                            write_wav=True, sound_font=None, device="cuda"):
+                            write_wav=True, sound_font=None, device="cuda", wavs=None):
     """Fast mode (mirrors bridge/mmgan_decode's): sequential decode on the
     global RNG, concurrent native sims with private routing streams, then
     per clip the MIDI decode, the synth and the mel on ``device``. The
@@ -230,10 +278,9 @@ def _matrix_to_wav_parallel(matrices, size, num_aug, use_same_instrument,
         routing_seed = int(np.random.randint(0, 2**31 - 1))
         sim = Sim(
             sim_matrix, distributions, [2 * 127] * dim, seeds=seeds,
-            log_path=log_path, generate_log=True, record_history=False,
+            log_path=None, generate_log=True, record_history=False,
             logging_mode="Music", max_sim_time=max_sim_time, engine="native",
         )
-        sim.log.path = None  # in-memory only
         sim.routing_rng = np.random.RandomState(routing_seed)
         sims.append(sim)
         metas.append((instruments, note_levels))
@@ -247,32 +294,11 @@ def _matrix_to_wav_parallel(matrices, size, num_aug, use_same_instrument,
     spectrograms = []
     for index, sim in enumerate(sims):
         instruments, note_levels = metas[index]
-        # native record-array decode first (writes the same output.mid
-        # bytes and returns the synth event arrays directly); Python
-        # generator fallback when the sim did not run natively
-        with span("midi"):
-            res = native_decode.decode_records_v1(
-                sim, instruments, note_levels,
-                os.path.join(out_dir, "midi", "output.mid"),
-            )
-        if res is not None:
-            _, events = res
-            with span("synth"):
-                audio, true_len = render_events(events, sr=sample_rate, as_tensor=True,
-                                                sound_font=sound_font, device=device)
-        else:
-            _, mid = process_adjsim_log_v1(
-                instruments=instruments, note_levels=note_levels,
-                lines=sim.music_lines(limit=5001),
-                out_path=os.path.join(out_dir, "midi", "output.mid"),
-                return_mid=True,
-            )
-            audio, true_len = render_midi(mid, sr=sample_rate, as_tensor=True,
-                                          sound_font=sound_font, device=device)
-        if write_wav:
-            output_file = os.path.join(out_dir, "wav", f"output_{index}.wav")
-            os.makedirs(os.path.dirname(output_file), exist_ok=True)
-            save_wav(output_file, audio[:true_len].cpu().numpy(), sample_rate)
+        audio, true_len = _render_sim(sim, instruments, note_levels, out_dir, sample_rate,
+                                      sound_font, device)
+        wav = _write_wav(audio, true_len, sample_rate, out_dir, write_wav, index, wavs)
+        if wavs is not None:
+            wavs.append(wav)
         spectrograms.append(_mel_from_device_audio(audio, sample_rate))
 
     return torch.stack([s[:, start:end] for s in spectrograms])

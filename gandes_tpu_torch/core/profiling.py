@@ -20,9 +20,10 @@ recorded only while a ``torch.profiler`` is active (``device_trace``,
 
 Counters: ``COUNTERS`` holds the process-wide totals of the host stage,
 always on: sims run, timed out (past their watchdog), stopped at their
-record limit (the thread-mode batch call) and failed (raised), DES events
-(event-log lines the engine emitted), rolls decoded and decodes skipped (the
-reference's zero-roll shortcut). The span that did the work carries its
+record limit (the thread-mode batch call), cut by their wall budget (a
+``Sim.run`` that a wall clock stopped before its customer count) and failed
+(raised), DES events (event-log lines the engine emitted), rolls decoded
+and decodes skipped (the reference's zero-roll shortcut). The span that did the work carries its
 own increments as attributes.
 """
 
@@ -41,8 +42,8 @@ import torch.autograd.profiler as _autograd_profiler
 
 SPAN_BUFFER = 65536
 RANGE_PREFIX = "gandes."
-COUNTER_NAMES = ("sims_run", "sims_timed_out", "sims_capped", "sims_failed", "des_events",
-                 "rolls_decoded", "decodes_skipped")
+COUNTER_NAMES = ("sims_run", "sims_timed_out", "sims_capped", "sims_budget_cut", "sims_failed",
+                 "des_events", "rolls_decoded", "decodes_skipped")
 
 
 class Counters:

@@ -338,9 +338,11 @@ class InputSong(Dataset):
         return len(self.audio_files)
 
     def __getitem__(self, item):
+        from gandes_tpu_torch.core.profiling import span
         from gandes_tpu_torch.music.mel import melspectrogram_db_tensor
 
-        return melspectrogram_db_tensor(self.audio_files[item], self.sample_rate)
+        with span("mel"):
+            return melspectrogram_db_tensor(self.audio_files[item], self.sample_rate)
 
 
 class MaestroDatasetGanDes(Dataset):
@@ -380,6 +382,7 @@ class MaestroDatasetGanDes(Dataset):
     def __getitem__(self, index):
         import torch
 
+        from gandes_tpu_torch.core.profiling import span
         from gandes_tpu_torch.music.mel import melspectrogram_db_tensor
         from gandes_tpu_torch.music.synth import render_midi
 
@@ -389,7 +392,8 @@ class MaestroDatasetGanDes(Dataset):
         splits = _five_second_slices(audio[:true_len], self.sample_rate)
         if len(splits) > self.k:
             splits = _random.sample(splits, self.k)
-        return torch.stack([melspectrogram_db_tensor(s, self.sample_rate) for s in splits])
+        with span("mel"):
+            return torch.stack([melspectrogram_db_tensor(s, self.sample_rate) for s in splits])
 
 
 def my_collate(batch):

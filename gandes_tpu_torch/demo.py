@@ -44,6 +44,7 @@ def main(argv=None):
     import torch
 
     from gandes_tpu_torch.bridge.sim_demo import sim_to_wav
+    from gandes_tpu_torch.core.profiling import span
     from gandes_tpu_torch.data.audio import load_wav, play_wav, save_wav
     from gandes_tpu_torch.eval.visualize import (
         plot_spectrogram,
@@ -93,7 +94,8 @@ def main(argv=None):
     audio = render_midi(mid_path, sound_font=args.sound_font, device=args.device)
     wav_path = os.path.join(args.out, "generation.wav")
     save_wav(wav_path, audio)
-    mel = melspectrogram_db_tensor(torch.from_numpy(load_wav(wav_path)[0]).to(args.device))
+    with span("mel"):
+        mel = melspectrogram_db_tensor(torch.from_numpy(load_wav(wav_path)[0]).to(args.device))
     print(f"  {wav_path} ({len(audio) / 44100:.1f}s), mel {tuple(mel.shape)} on {mel.device}")
     plot("spectrogram.png", lambda p: plot_spectrogram(mel, save_path=p))
 

@@ -383,6 +383,8 @@ struct Engine {
   // sim routes on a private stream, so its length moves no shared state
   bool stop_at_record_limit = false;
   bool stopped_at_record_limit = false;
+  // the last run_one ended on its wall deadline, before its customer count
+  bool stopped_on_wall = false;
   // queue-length-time buckets: dense n x qlt_cap
   std::vector<double> qlt;
   int qlt_cap = 0;
@@ -666,9 +668,11 @@ struct Engine {
   bool run_one(int64_t number_of_customers, double wall_deadline) {
     fel = Heap();
     reset();
+    stopped_on_wall = false;
     try {
       initialization(wall_deadline);
     } catch (int) {
+      stopped_on_wall = true;
       return true;
     }
     previous_time = 0;
@@ -691,6 +695,7 @@ struct Engine {
           process_departure(evt, wall_deadline);
       } catch (int) {
         interrupted = true;
+        stopped_on_wall = true;
         break;
       }
       ++iter;
@@ -704,6 +709,7 @@ struct Engine {
         break;
       }
       if (wall_now() > wall_deadline) {
+        stopped_on_wall = true;
         break;
       }
     }
@@ -1174,7 +1180,10 @@ int64_t des_format_records(const double* values, const int64_t* ids,
   return q - out;
 }
 
-// Runs all replications. Returns 0 ok, 1 wall-interrupted.
+// Runs all replications. Returns a bit set: 1 a replication was interrupted
+// inside an event (the seed loop stops, as the Python engine's does), 2 a
+// replication ended on its wall deadline (max_sim_time) before its customer
+// count, whether inside an event or between two.
 // Outputs are written into caller buffers; the record buffer is allocated
 // here (grown as needed) and must be freed with des_free_records.
 int des_run(
@@ -1244,7 +1253,7 @@ int des_run(
   eng.qlt_cap = qlt_cap;
   eng.qlt.assign((size_t)n * qlt_cap, 0.0);
 
-  bool interrupted = false;
+  bool interrupted = false, stopped_on_wall = false;
   for (int r = 0; r < num_seeds; r++) {
     MT19937 master;
     master.seed((uint32_t)seeds[r]);
@@ -1269,6 +1278,7 @@ int des_run(
     double wall_deadline = wall_now() + max_sim_time_s;
     bool rep_interrupted = eng.run_one(number_of_customers, wall_deadline);
     interrupted = interrupted || rep_interrupted;
+    stopped_on_wall = stopped_on_wall || eng.stopped_on_wall;
     if (rep_stats != nullptr) {
       for (int i = 0; i < n; i++) {
         double* row = rep_stats + ((size_t)r * n + i) * 9;
@@ -1341,7 +1351,7 @@ int des_run(
     *rec_servers = nullptr;
     *rec_kinds = nullptr;
   }
-  return interrupted ? 1 : 0;
+  return (interrupted ? 1 : 0) | (stopped_on_wall ? 2 : 0);
 }
 
 void des_free_records(double* v, int64_t* ids, int32_t* srv, uint8_t* kinds) {

@@ -351,7 +351,9 @@ class Sim:
         self.routing_rng = None
 
         if self.generate_log:
-            filename = log_path + ("simulation.log" if log_name is None else log_name)
+            # log_path None: the log stays in memory
+            filename = (None if log_path is None
+                        else log_path + ("simulation.log" if log_name is None else log_name))
             self.log = EventLog(filename)
         else:
             self.log = None
@@ -444,8 +446,11 @@ class Sim:
     def run(self, number_of_customers=50, use_next_available_server=False):
         """Run the replications, inside a ``des`` span. Counts the sim in
         ``core/profiling.py``'s ``COUNTERS``: its log lines as DES events, a
-        run that ended past ``deadline`` as timed out, one that raised as
-        failed; the span carries the same increments."""
+        run that ended past ``deadline`` as timed out, one that its wall
+        budget ``max_sim_time`` stopped before its customer count as cut
+        (``budget_cut``; a stop on an earlier ``deadline`` is the watchdog's,
+        not the budget's), one that raised as failed; the span carries the
+        same increments."""
         with span("des", customers=number_of_customers) as s:
             try:
                 self._run(number_of_customers, use_next_available_server)
@@ -454,9 +459,11 @@ class Sim:
                 s.set(failed=1)
                 raise
             timed_out = int(self.deadline is not None and _time.time() > self.deadline)
+            cut = int(self.budget_cut)
             events = self.log_line_count()
-            COUNTERS.add(sims_run=1, sims_timed_out=timed_out, des_events=events)
-            s.set(timed_out=timed_out, events=events)
+            COUNTERS.add(sims_run=1, sims_timed_out=timed_out, sims_budget_cut=cut,
+                         des_events=events)
+            s.set(timed_out=timed_out, budget_cut=cut, events=events)
 
     def _run(self, number_of_customers, use_next_available_server):
         n = len(np.diag(self.adj_matrix))
@@ -464,6 +471,7 @@ class Sim:
         self.source_seeds = [[] for _ in range(n)]
         self.number_of_customers = number_of_customers
         self.use_next_available_server = use_next_available_server
+        self.budget_cut = False  # set by the engine that runs
 
         if self.engine in ("auto", "native"):
             from gandes_tpu_torch.des import native
@@ -510,14 +518,17 @@ class Sim:
             self.reset_variables()
             try:
                 self.Initialization()
-            except SimBudgetExceeded:
+            except SimBudgetExceeded:  # on the previous replication's deadline
+                self.budget_cut = self._budget_binds
                 break
 
             self.previous_time = 0
             start_time = _time.time()
             deadline = start_time + self.max_sim_time
-            if self.deadline is not None:
-                deadline = min(deadline, self.deadline)
+            # which clock stops the run: the wall budget, or an earlier watchdog
+            self._budget_binds = self.deadline is None or deadline <= self.deadline
+            if not self._budget_binds:
+                deadline = self.deadline
             # let the service-time redraw loop see the wall budget too: a
             # near-degenerate normal (loc~0, scale~0) costs ~N(loc/scale)
             # redraws per draw, which the reference lets spin unboundedly
@@ -549,9 +560,11 @@ class Sim:
                         self.ProcessDeparture(evt)
                 except SimBudgetExceeded:
                     interrupted = True
+                    self.budget_cut = self._budget_binds
                     break
 
                 if _time.time() > deadline:
+                    self.budget_cut = self._budget_binds
                     if self.verbose:
                         print(
                             f"Simulation time exceeded max_sim_time input:{self.max_sim_time} "

@@ -362,12 +362,15 @@ def run_native(sim, number_of_customers: int, use_next_available_server: bool):
     # downstream consumers read at most ~5001 lines + the total line count
     record_limit = -1 if (sim.log is not None and sim.log.path is not None) else 5100
     deadline_budget = sim.max_sim_time
+    budget_binds = True  # the wall budget, not an earlier watchdog, stops the run
     if sim.deadline is not None:
         import time as _t
 
-        deadline_budget = min(deadline_budget, max(sim.deadline - _t.time(), 0.0))
+        left = max(sim.deadline - _t.time(), 0.0)
+        budget_binds = deadline_budget <= left
+        deadline_budget = min(deadline_budget, left)
 
-    lib.des_run(
+    ended = lib.des_run(
         C.c_int(n), ptr(node_is_source), ptr(dist_kind), ptr(dist_params),
         ptr(queue_caps), ptr(children_arr), ptr(offsets_arr), ptr(cdf_arr),
         ptr(route_mode), ptr(is_sink),
@@ -386,6 +389,8 @@ def run_native(sim, number_of_customers: int, use_next_available_server: bool):
         C.byref(rec_kinds), C.byref(rec_count),
     )
 
+    # a replication ended on its wall deadline, and that deadline was the budget's
+    sim.budget_cut = bool(ended & 2) and budget_binds
     # write the advanced routing stream back
     new_state = ("MT19937", g_key, int(g_pos.value),
                  int(g_has_gauss.value), float(g_gauss.value))

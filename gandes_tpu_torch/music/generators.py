@@ -160,9 +160,14 @@ class MidiGeneratorV1(_MidiGeneratorBase):
             self.future_events[array3]["service_time"] += midi_time
 
     def save_midi(self, filename="output.mid"):
+        self.finalize_in_memory()
+        self.mid.save(filename)
+
+    def finalize_in_memory(self):
+        """The content side of ``save_midi`` (the track closed and attached)
+        without the file write."""
         self.track.append(MetaMessage("end_of_track"))
         self.mid.tracks.append(self.track)
-        self.mid.save(filename)
 
 
 class MidiGeneratorV0(MidiGeneratorV1):
@@ -354,7 +359,8 @@ def process_adjsim_log_v1(
     read <= 5000 lines, stage/emit notes, save, return the file path.
     ``return_mid=True`` additionally returns the in-memory MidiFile (encode
     and re-parse are inverse for these tracks, so rendering from it equals
-    rendering from the written file — skipping the re-parse)."""
+    rendering from the written file — skipping the re-parse).
+    ``out_path=None`` writes no file (the path returned is None)."""
     with span("midi"):
         if note_levels is None:
             note_levels = _DEFAULT_NOTE_LEVELS
@@ -370,8 +376,11 @@ def process_adjsim_log_v1(
             processed = log_processor.process_line(line)
             if processed:
                 midi_generator.process_line(processed)
-        os.makedirs(os.path.dirname(out_path), exist_ok=True)
-        midi_generator.save_midi(filename=out_path)
+        if out_path is None:
+            midi_generator.finalize_in_memory()
+        else:
+            os.makedirs(os.path.dirname(out_path), exist_ok=True)
+            midi_generator.save_midi(filename=out_path)
         if return_mid:
             return out_path, midi_generator.mid
         return out_path

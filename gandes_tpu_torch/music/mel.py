@@ -30,8 +30,6 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from gandes_tpu_torch.core.profiling import span
-
 _AMIN = 1e-10
 
 
@@ -237,15 +235,17 @@ def melspectrogram_db_tensor(waveform, sr=44100, n_fft=2048, hop_length=512,
     """== reference ``get_melspectrogram_db_tensor`` (util.py:37-61):
     dynamic hop forcing ~mel_length frames, htk mel, power dB. The mel is
     taken on the waveform's device. ``hop_length`` is accepted for the
-    reference signature and replaced by the dynamic hop, as there."""
-    with span("mel"):
-        waveform = _as_wave(waveform)
-        hop_length = int(waveform.shape[0]) // (mel_length - 1)
-        new_audio_length = mel_length * hop_length
-        waveform = waveform[:new_audio_length]
-        mel = _mel_power_backend(waveform, sr, n_fft, hop_length, n_mels, fmin, fmax,
-                                 True, False)
-        return amplitude_to_db_torch(mel, top_db=top_db)
+    reference signature and replaced by the dynamic hop, as there. It opens
+    no span: the pipeline's callers open ``mel`` around it
+    (``bridge/gandes_decode.py``, ``data/datasets.py``, ``demo.py``), so that
+    a profiler range opened around this function stays the innermost one."""
+    waveform = _as_wave(waveform)
+    hop_length = int(waveform.shape[0]) // (mel_length - 1)
+    new_audio_length = mel_length * hop_length
+    waveform = waveform[:new_audio_length]
+    mel = _mel_power_backend(waveform, sr, n_fft, hop_length, n_mels, fmin, fmax,
+                             True, False)
+    return amplitude_to_db_torch(mel, top_db=top_db)
 
 
 def melspectrogram_power_tensor(waveform, sr=44100, n_fft=2048, hop_length=512,

@@ -67,8 +67,8 @@ def decode_records_v1(sim, instruments, note_levels, out_path,
                       program_change_per_note=False, max_events=1024):
     """Native v1/v0 decode: the engine's raw records -> the ``output.mid``
     SMF bytes (byte-identical to ``process_adjsim_log_v1``'s file, which is
-    written to ``out_path``) plus the synth event arrays (bit-identical to
-    ``midi_to_event_arrays`` over that file). Returns
+    written to ``out_path`` unless it is None) plus the synth event arrays
+    (bit-identical to ``midi_to_event_arrays`` over that file). Returns
     ``(out_path, events_tuple)`` or ``None`` when ineligible."""
     lib = get_lib()
     if lib is None:
@@ -119,9 +119,10 @@ def decode_records_v1(sim, instruments, note_levels, out_path,
     if rc != 0:
         return None
 
-    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    with open(out_path, "wb") as f:
-        f.write(smf[: smf_len.value].tobytes())
+    if out_path is not None:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        with open(out_path, "wb") as f:
+            f.write(smf[: smf_len.value].tobytes())
     events = (ev_notes, ev_vels, ev_ons, ev_offs, ev_progs,
               int(ev_n.value), float(ev_end.value))
     return out_path, events

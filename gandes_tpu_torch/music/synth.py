@@ -136,11 +136,25 @@ def _render(notes, vels, ons, offs, progs, n_valid: int, L: int, W: int, sr: int
     its onset sample, event by event in order. That is the order of the
     reference's scatter-add, and a fixed order keeps the float sums, and so
     the WAV bytes, equal from run to run on the CPU and on the card (a
-    parallel scatter-add sums overlapping notes in a varying order)."""
+    parallel scatter-add sums overlapping notes in a varying order).
+
+    On the card, where each of those adds is a kernel launch of its own,
+    the windows are synthesized in blocks of up to ``_BATCH_SAMPLES``
+    samples and, where the onsets rise in event order, ``_overlap_add``
+    makes the same sums in a few passes: the same bits, since elementwise
+    math on the card does not depend on a tensor's shape. On the CPU the
+    blocks stay EVENT_BLOCK events (its vectorised sin can differ from its
+    scalar one, which it uses at a chunk's tail) and the adds stay per
+    event, which cost it little."""
     E = notes.shape[0]
     # onset samples and validity on the host: they pick the slices to add
     on_samp = np.round(ons * np.float32(sr)).astype(np.int64)
     valid_np = (np.arange(E) < n_valid) & (vels > 0)
+    used = valid_np & (on_samp < L)
+    starts = on_samp[used]
+    batched = (_batched(device) and E * W <= _BATCH_LIMIT
+               and bool(np.all(starts >= 0)) and bool(np.all(np.diff(starts) >= 0)))
+    block = max(EVENT_BLOCK, _BATCH_SAMPLES // W) if batched else EVENT_BLOCK
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     omega = t(_NOTE_OMEGA)[t(notes).to(torch.int64)]
@@ -157,11 +171,13 @@ def _render(notes, vels, ons, offs, progs, n_valid: int, L: int, W: int, sr: int
     att = torch.clamp(dt / ATTACK_S, 0.0, 1.0)
     dec = 1.0 - (1.0 - SUSTAIN) * torch.clamp((dt - ATTACK_S) / DECAY_S, 0.0, 1.0)
 
-    audio = torch.zeros(L + W, dtype=torch.float32, device=device)
-    for b0 in range(0, E, EVENT_BLOCK):
-        sl = slice(b0, b0 + EVENT_BLOCK)
-        events = [e for e in range(b0, min(b0 + EVENT_BLOCK, E))
-                  if valid_np[e] and on_samp[e] < L]
+    if batched:
+        rows = torch.empty((E, W), dtype=torch.float32, device=device)  # event e's window
+    else:
+        audio = torch.zeros(L + W, dtype=torch.float32, device=device)
+    for b0 in range(0, E, block):
+        sl = slice(b0, b0 + block)
+        events = [e for e in range(b0, min(b0 + block, E)) if used[e]]
         if not events:
             continue
         w, a_, d, v, hw = omega[sl], amps[sl], durs[sl], valid[sl], h_w[sl]
@@ -172,12 +188,56 @@ def _render(notes, vels, ons, offs, progs, n_valid: int, L: int, W: int, sr: int
         sig = torch.zeros_like(phase)
         for k in range(N_HARMONICS):
             sig = sig + hw[:, k : k + 1] * torch.sin((k + 1) * phase)
+        if batched:
+            torch.mul(env, sig, out=rows[sl])
+            continue
         windows = env * sig
         for e in events:
             audio[on_samp[e] : on_samp[e] + W] += windows[e - b0]
-    audio = audio[:L]
+    if batched:
+        audio = _overlap_add(rows, np.flatnonzero(used), starts, L)
+    else:
+        audio = audio[:L]
     peak = torch.max(torch.abs(audio))
     return torch.where(peak > 1.0, audio / (peak + 1e-6), audio)
+
+
+_BATCH_SAMPLES = 1 << 24  # window samples synthesized at once on the card
+_BATCH_LIMIT = 1 << 28    # the most window samples (events x W) it holds
+
+
+def _batched(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def _overlap_add(rows, events, starts, L: int):
+    """The timeline of length ``L`` on which window ``rows[events[i]]`` is
+    added at sample ``starts[i]``, for onsets ``starts`` that never fall, in
+    the order of the per-event adds: the windows that cover a sample are
+    then a run of consecutive ``i``, so pass ``j`` adds, to each sample
+    still covered, the ``j``-th window of its run. Each sample gets the same
+    float adds in the same order as ``audio[start:start + W] += window``
+    event by event, and the passes together touch each window's samples
+    once."""
+    W = rows.shape[1]
+    device = rows.device
+    audio = torch.zeros(L, dtype=torch.float32, device=device)
+    if starts.size == 0:
+        return audio
+    depth = (np.searchsorted(starts, starts, side="right")
+             - np.searchsorted(starts + W, starts, side="right"))  # the most, at an onset
+    st = torch.from_numpy(starts).to(device)
+    ev = torch.from_numpy(events).to(device)
+    s = torch.arange(int(starts[0]), min(L, int(starts[-1]) + W), device=device)
+    first = torch.searchsorted(st + W, s, right=True)      # first window that reaches past s
+    left = torch.searchsorted(st, s, right=True) - first   # windows that cover s
+    flat = rows.view(-1)
+    for j in range(int(depth.max())):
+        keep = torch.nonzero(left > j).squeeze(1)
+        s, first, left = s[keep], first[keep], left[keep]
+        i = first + j
+        audio[s] += flat[ev[i] * W + (s - st[i])]
+    return audio
 
 
 def _pow2(x: int) -> int:

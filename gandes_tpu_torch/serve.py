@@ -28,8 +28,8 @@ requests would interleave those streams.
 Each service counts its requests and their summed latency (``stats``, a
 ``core/profiling.py::Counters``); ``/healthz`` reports them beside
 ``counters``, the process-wide totals of the host stage (``sims_run``,
-``sims_timed_out``, ``sims_capped``, ``sims_failed``, ``des_events``,
-``rolls_decoded``, ``decodes_skipped``). While a ``torch.profiler`` runs in
+``sims_timed_out``, ``sims_capped``, ``sims_budget_cut``, ``sims_failed``,
+``des_events``, ``rolls_decoded``, ``decodes_skipped``). While a ``torch.profiler`` runs in
 the process, each request records spans, which its trace shows as
 ``gandes.<name>`` ranges: ``lock_wait`` (the wait for the generation lock),
 ``request`` (the interval ``latency_s`` times) and inside it ``generator``,
@@ -54,6 +54,7 @@ import torch
 
 from gandes_tpu_torch import use_f32_numerics
 from gandes_tpu_torch.core.profiling import COUNTERS, Counters, span
+from gandes_tpu_torch.data.audio import Base64Text
 
 class BadRequest(ValueError):
     """Client-side error (malformed body, n out of range) -> HTTP 400.
@@ -104,6 +105,7 @@ class GenerationService:
             self.cfg = GanDesConfig()
             self.gen, _ = load_gandes_state(self.cfg, torch_checkpoint, device=self.device)
             self._fwd = gandes_eval_forward(self.gen)
+            self._base64 = Base64Text()
 
     # ------------------------------------------------------------ handlers
 
@@ -192,16 +194,35 @@ class GenerationService:
             noise = torch.randn(n, self.cfg.z_dim, generator=g, device=self.device)
             mats = self._fwd(noise).cpu().numpy()
         np.random.seed(seed)
-        wav_b64 = []
-        with tempfile.TemporaryDirectory() as tmp:
-            specs = matrix_to_wav(mats, size=20, start=0, end=216, out_dir=tmp,
-                                  log_path=os.path.join(tmp, "logs/"),
-                                  sound_font=self.sound_font, device=self.device)
-            with span("wav"):
-                for i in range(n):
-                    with open(os.path.join(tmp, "wav", f"output_{i}.wav"), "rb") as f:
-                        wav_b64.append(base64.b64encode(f.read()).decode())
+        # nothing on disk: the sim's log, the MIDI and the WAVs stay in memory,
+        # and each WAV reaches the host once, as its base64 text
+        wavs = []
+        specs = matrix_to_wav(mats, size=20, start=0, end=216, log_path=None, out_dir=None,
+                              wavs=wavs, sound_font=self.sound_font, device=self.device)
+        with span("wav"):
+            wav_b64 = [self._base64(w) for w in wavs]
         return {"wav_b64": wav_b64, "mel_shape": list(specs.shape)}
+
+
+def reply_body(payload: dict) -> bytes:
+    """``json.dumps(payload).encode()``, with each list under a ``*_b64`` key
+    (base64 text, or None) copied in as it is: base64's alphabet needs no
+    escaping, and for a clip's megabytes of WAV the scan that ``json.dumps``
+    makes for escapes is most of the reply's encoding."""
+    pieces = []
+    for key, value in payload.items():
+        pieces.append(b", " if pieces else b"{")
+        if key.endswith("_b64") and isinstance(value, list):
+            pieces.append(json.dumps(key).encode() + b": [")
+            for i, text in enumerate(value):
+                if i:
+                    pieces.append(b", ")
+                pieces += [b"null"] if text is None else [b'"', text.encode("ascii"), b'"']
+            pieces.append(b"]")
+        else:
+            pieces.append(json.dumps({key: value})[1:-1].encode())
+    pieces.append(b"}" if pieces else b"{}")
+    return b"".join(pieces)
 
 
 def make_http_server(service, host: str = "127.0.0.1",
@@ -222,7 +243,7 @@ def make_http_server(service, host: str = "127.0.0.1",
 
         def _reply(self, code: int, payload: dict):
             with span("http.reply") as s:
-                body = json.dumps(payload).encode()
+                body = reply_body(payload)
                 s.set(bytes=len(body))
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")

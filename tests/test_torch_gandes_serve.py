@@ -34,10 +34,11 @@ from gandes_tpu.bridge.gandes_decode import matrix_to_wav as jax_matrix_to_wav
 from gandes_tpu.des import native as jax_native
 from gandes_tpu.models.gan_des import DCGANGenerator as JaxDCGAN
 from gandes_tpu_torch.bridge.gandes_decode import matrix_to_wav
+from gandes_tpu_torch.data.audio import Base64Text, save_wav, wav_tensor
 from gandes_tpu_torch.music.mel import melspectrogram_db_tensor
 from gandes_tpu_torch.music.synth import _pow2
 from gandes_tpu_torch.des import native
-from gandes_tpu_torch.serve import GenerationService, make_http_server
+from gandes_tpu_torch.serve import GenerationService, make_http_server, reply_body
 
 DB_ATOL = 0.05
 FLOOR_DB_ATOL = 0.2   # every bin end to end, floor bins included
@@ -64,11 +65,16 @@ def _des_libs_loaded():
 
 
 @pytest.fixture(scope="module")
-def slice_runs(tmp_path_factory):
+def jax_mats():
     gen = JaxDCGAN()
     z = np.random.RandomState(0).randn(2, 100).astype(np.float32)
     variables = gen.init(jax.random.key(1), jnp.asarray(z), True)
-    mats = np.asarray(gen.apply(variables, jnp.asarray(z), False))
+    return np.asarray(gen.apply(variables, jnp.asarray(z), False))
+
+
+@pytest.fixture(scope="module")
+def slice_runs(tmp_path_factory, jax_mats):
+    mats = jax_mats
     runs = {}
     for name, fn, kw in (("jax", jax_matrix_to_wav, {}),
                          ("torch", matrix_to_wav, {"device": "cpu"})):
@@ -108,6 +114,86 @@ def test_matrix_to_wav_matches_jax(slice_runs):
         np.testing.assert_allclose(ours[i], ref[i], atol=FLOOR_DB_ATOL)
 
 
+@pytest.mark.parametrize("parallel", [None, 2])
+def test_matrix_to_wav_in_memory_matches_its_files(jax_mats, tmp_path, parallel):
+    """With no log path, no output directory and a ``wavs`` list, nothing is
+    written: the sim's records stay in memory and decode natively, and the
+    spectrograms, the WAV bytes and the global RNG's state after the call
+    equal those of the run that writes its log, MIDI and WAV files (which
+    decodes the log's lines in Python on the sequential path)."""
+    d = str(tmp_path / "files")
+    np.random.seed(3)
+    with_files = matrix_to_wav(jax_mats, size=20, start=0, end=216, out_dir=d,
+                               log_path=os.path.join(d, "logs/"), max_sim_time=60,
+                               parallel=parallel, device="cpu")
+    after_files = np.random.get_state()
+    files = []
+    for i in range(len(jax_mats)):
+        with open(os.path.join(d, "wav", f"output_{i}.wav"), "rb") as f:
+            files.append(f.read())
+    wavs = []
+    work = tmp_path / "cwd"
+    work.mkdir()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        np.random.seed(3)
+        in_memory = matrix_to_wav(jax_mats, size=20, start=0, end=216, out_dir=None,
+                                  log_path=None, wavs=wavs, max_sim_time=60,
+                                  parallel=parallel, device="cpu")
+    finally:
+        os.chdir(cwd)
+    after_memory = np.random.get_state()
+    assert not os.listdir(work)
+    assert torch.equal(with_files, in_memory)
+    assert all(w.dtype == torch.uint8 and w.device.type == "cpu" for w in wavs)
+    assert [bytes(w.numpy()) for w in wavs] == files
+    assert after_files[2:] == after_memory[2:]
+    assert np.array_equal(after_files[1], after_memory[1])
+
+
+def test_matrix_to_wav_without_an_out_dir_writes_nothing(jax_mats, tmp_path, monkeypatch):
+    """``out_dir=None`` writes no file, whatever ``write_wav`` says, and
+    needs no ``wavs`` to collect the WAVs."""
+    monkeypatch.chdir(tmp_path)
+    np.random.seed(5)
+    specs = matrix_to_wav(jax_mats[:1], size=20, start=0, end=216, out_dir=None,
+                          log_path=None, write_wav=True, max_sim_time=60, device="cpu")
+    assert specs.shape == (1, 128, 216)
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 44_101])
+def test_a_wav_built_on_the_device_is_save_wavs_file(tmp_path, n):
+    """``wav_tensor`` gives the bytes ``save_wav`` writes (samples past
+    [-1, 1] clipped), and ``Base64Text`` their base64, for every length
+    modulo 3."""
+    wave = (np.random.RandomState(n).randn(n) * 0.8).astype(np.float32)
+    save_wav(str(tmp_path / "a.wav"), wave, 22050)
+    with open(tmp_path / "a.wav", "rb") as f:
+        written = f.read()
+    built = wav_tensor(torch.from_numpy(wave), 22050)
+    assert bytes(built.numpy()) == written
+    text = Base64Text()
+    assert text(built) == base64.b64encode(written).decode()
+    assert text(built[: n % 5]) == base64.b64encode(written[: n % 5]).decode()
+
+
+@pytest.mark.parametrize("payload", [
+    {},
+    {"wav_b64": ["UklGRg=="], "mel_shape": [1, 128, 216], "latency_s": 0.0941},
+    {"midi_b64": ["TVRoZA==", None], "roll_sums": [1.5, 0.0], "failed": 1,
+     "wav_b64": [None, "QQ=="], "latency_s": 0.1},
+    {"wav_b64": []},
+    {"error": 'ValueError: "n" é'},
+    {"status": "ok", "models": {"gandes": {"counters": {"sims_run": 2}}}},
+])
+def test_the_reply_body_is_json_dumps(payload):
+    """The reply splices base64 lists in unscanned; its bytes stay those of
+    ``json.dumps(payload).encode()``."""
+    assert reply_body(payload) == json.dumps(payload).encode()
+
+
 def test_matrix_to_wav_parallel_mode_is_not_ported():
     """The concurrent mode is ported now (tests/test_torch_native_batch.py):
     a matrix with no routing mass fails its decode in it as in the
@@ -131,9 +217,23 @@ def test_generation_service_gandes(service, tmp_path, monkeypatch):
     again = service.generate(n=2, seed=0)
     assert again["wav_b64"] == out["wav_b64"]  # same seed -> same bytes
     assert service.generate(n=2, seed=1)["wav_b64"] != out["wav_b64"]
-    assert not os.listdir(tmp_path)  # DES logs and WAVs stay in the request's temp dir
+    assert not os.listdir(tmp_path)  # DES logs, MIDI and WAVs stay in memory
     with pytest.raises(ValueError):
         service.generate(n=0)
+
+
+def test_a_request_makes_no_temporary_directory(service, tmp_path, monkeypatch):
+    """The sim's log, the MIDI and the WAV of a request never touch a disk."""
+    import tempfile
+
+    def no_mkdtemp(*args, **kwargs):
+        raise AssertionError("a GAN-DES request made a temporary directory")
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tempfile, "mkdtemp", no_mkdtemp)
+    out = service.generate(n=1, seed=4)
+    assert base64.b64decode(out["wav_b64"][0])[:4] == b"RIFF"
+    assert not os.listdir(tmp_path)
 
 
 def test_http_round_trip(service, tmp_path, monkeypatch):

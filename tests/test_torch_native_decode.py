@@ -160,7 +160,9 @@ def test_decode_records_v2_respects_line_budget(tmp_path):
 def test_decode_records_v1_matches_jax_and_python(tmp_path, pcn, tag):
     """``output.mid`` bytes equal across the port's native decoder, the JAX
     package's and the port's v1/v0 generator; the event arrays equal
-    ``midi_to_event_arrays`` of that file, over GAN-DES sims."""
+    ``midi_to_event_arrays`` of that file, over GAN-DES sims. Without an
+    ``out_path`` both of the port's decoders write nothing and give the same
+    events and MIDI."""
     procfn = process_adjsim_log_v0 if pcn else process_adjsim_log_v1
     events = 0
     for seed in range(2):
@@ -179,10 +181,17 @@ def test_decode_records_v1_matches_jax_and_python(tmp_path, pcn, tag):
         ref = jax_nd.decode_records_v1(sim, instr, notes, paths["jax"],
                                        program_change_per_note=pcn)
         assert ours is not None and ref is not None
+        unwritten = nd.decode_records_v1(sim, instr, notes, None, program_change_per_note=pcn)
         _, mid = procfn(instruments=instr, note_levels=notes, lines=sim.music_lines(limit=5001),
                         out_path=paths["py"], return_mid=True)
+        path, mid_unwritten = procfn(instruments=instr, note_levels=notes,
+                                     lines=sim.music_lines(limit=5001), out_path=None,
+                                     return_mid=True)
         files = {k: open(p, "rb").read() for k, p in paths.items()}
         assert files["ours"] == files["jax"] == files["py"]
+        assert path is None and unwritten[0] is None and mid_unwritten._encode() == files["py"]
+        for a, b in zip(unwritten[1], ours[1], strict=True):
+            np.testing.assert_array_equal(a, b)
         py_events = midi_to_event_arrays(mid, 1024)
         for a, b, c in zip(ours[1], ref[1], py_events, strict=True):
             np.testing.assert_array_equal(a, b)

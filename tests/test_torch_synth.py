@@ -132,6 +132,60 @@ def test_sound_font_resolution(tmp_path):
     assert not np.allclose(ours[: len(a)], a[: len(ours)], atol=1e-3)
 
 
+def _shuffled(events):
+    notes, vels, ons, offs, progs, n, end = events
+    order = np.random.RandomState(9).permutation(n)
+    ons, offs = ons.copy(), offs.copy()
+    ons[:n], offs[:n] = ons[order], offs[order]
+    return notes, vels, ons, offs, progs, n, end
+
+
+def _chords(events):
+    notes, vels, ons, offs, progs, n, end = events
+    ons = ons.copy()
+    ons[:n] = ons[:n][::4].repeat(4)[:n]  # four notes to an onset
+    return notes, vels, ons, offs, progs, n, end
+
+
+def _silent(events):
+    notes, vels, ons, offs, progs, n, end = events
+    return notes, np.zeros_like(vels), ons, offs, progs, n, end
+
+
+@pytest.mark.parametrize("case,L,batched", [
+    ("spread", 1 << 19, True), ("dense", 1 << 17, True), ("chords", 1 << 19, True),
+    ("past_the_end", 1 << 16, True), ("unsorted", 1 << 19, False), ("silent", 1 << 19, True)])
+def test_the_cards_batched_render_adds_as_the_loop_does(monkeypatch, case, L, batched):
+    """On the card the synth makes its windows in large blocks and sums them
+    in passes (``_overlap_add``) instead of one add per event. With one
+    intra-op thread the CPU's math does not depend on a tensor's shape
+    either, so there the two renders are equal bit for bit: windows that
+    overlap, chords, onsets past the bucket, no note at all. Onsets out of
+    order keep the per-event adds."""
+    events = {"spread": lambda: _events(n=300, seed=4, span_s=8.0),
+              "dense": lambda: _events(n=600, seed=1, span_s=1.0),
+              "chords": lambda: _chords(_events(n=300, seed=5, span_s=6.0)),
+              "past_the_end": lambda: _events(n=300, seed=6, span_s=3.0),
+              "unsorted": lambda: _shuffled(_events(n=300, seed=7, span_s=6.0)),
+              "silent": lambda: _silent(_events(n=50, seed=8))}[case]()
+    notes, vels, ons, offs, progs, n, _ = events
+    args = (notes, vels, ons, offs, progs, n, L, 1 << 15, 44100, "cpu")  # two blocks on the card
+    per_event = synth._render(*args)
+    passes = []
+    real = synth._overlap_add
+    monkeypatch.setattr(synth, "_batched", lambda device: True)
+    monkeypatch.setattr(synth, "_overlap_add", lambda *a: passes.append(a) or real(*a))
+    together = synth._render(*args)
+    assert len(passes) == int(batched)
+    assert together.shape == per_event.shape == (L,)
+    assert torch.equal(together, per_event)
+    assert not torch.signbit(together[together == 0]).any()
+    if case == "silent":
+        assert not together.any()
+    elif case == "past_the_end":
+        assert int(np.round(ons[:n] * np.float32(44100)).max()) >= L
+
+
 def test_render_is_deterministic_and_on_the_requested_device():
     events = _events(n=100, seed=3, span_s=1.0)
     a, _ = synth.render_events(events, as_tensor=True, device="cpu")

@@ -1,7 +1,8 @@
 """The port's spans and counters (``gandes_tpu_torch/core/profiling.py``) on
 the CPU: spans only under a ``torch.profiler``, their nesting, threads and
 clock against the profiler's own ranges; the host stage's counters for sims
-cut by their watchdog; ``/healthz``'s counters and a request's spans; a
+cut by their watchdog or by their wall budget; ``/healthz``'s counters and
+an MM-GAN and a GAN-DES request's spans; a
 two-step ``train_mmgan``'s counters and spans; ``StepTimer`` samples after
 the loop is stopped from its data, and its CUDA-event phases resolved
 without a synchronisation (with stand-in events, since the CPU has none).
@@ -23,6 +24,7 @@ from gandes_tpu_torch.bridge import mmgan_decode
 from gandes_tpu_torch.core import profiling
 from gandes_tpu_torch.core.profiling import COUNTER_NAMES, COUNTERS, StepTimer, span, spans
 from gandes_tpu_torch.des import native
+from gandes_tpu_torch.des.engine import Sim
 from gandes_tpu_torch.music import native_decode
 from gandes_tpu_torch.serve import GenerationService, make_http_server
 from gandes_tpu_torch.train import mmgan_loop as ml
@@ -173,6 +175,49 @@ def test_a_sim_past_its_watchdog_is_counted(tmp_path, parallel, span_name):
         assert sum(s.attrs["events"] for s in found) == grew["des_events"]
 
 
+@pytest.mark.parametrize("engine", ["python", "native"])
+@pytest.mark.parametrize("budget,customers,cut", [(0.0, 100_000, 1), (1000.0, 50, 0)])
+def test_a_sim_cut_by_its_wall_budget_is_counted(engine, budget, customers, cut):
+    """A wall budget of 0 stops the sim long before its customers:
+    ``sims_budget_cut`` and the ``des`` span's ``budget_cut`` count it once on
+    either engine; a sim that reaches its customer count counts zero. Neither
+    is past a watchdog."""
+    adj = np.array([[1.0, 1.0], [0.0, -1.0]])  # source 0 -> server 1 -> sink
+    sim = Sim(adj, [["exponential", 1.0], ["exponential", 0.8]], [0, 20], seeds=[7],
+              max_sim_time=budget, engine=engine)
+    np.random.seed(42)
+    before = COUNTERS.snapshot()
+    t0 = time.perf_counter_ns()
+    with _profiler():
+        sim.run(number_of_customers=customers)
+    grew = COUNTERS.since(before)
+    assert sim.budget_cut is bool(cut)
+    assert (sim.total_customers < customers) is bool(cut)
+    assert grew["sims_run"] == 1 and grew["sims_budget_cut"] == cut
+    assert grew["sims_timed_out"] == grew["sims_failed"] == 0
+    (s,) = _new_spans(t0, "des")
+    assert s.attrs["budget_cut"] == cut and s.attrs["timed_out"] == 0
+
+
+@pytest.mark.parametrize("engine", ["python", "native"])
+def test_a_sim_cut_by_its_watchdog_is_not_a_budget_cut(engine):
+    """A watchdog that passes long before the wall budget stops the sim: it
+    counts as timed out on either engine, and not as cut by its budget."""
+    adj = np.array([[1.0, 1.0], [0.0, -1.0]])
+    sim = Sim(adj, [["exponential", 1.0], ["exponential", 0.8]], [0, 20], seeds=[7],
+              max_sim_time=1000.0, deadline=time.time(), engine=engine)
+    np.random.seed(42)
+    before = COUNTERS.snapshot()
+    t0 = time.perf_counter_ns()
+    with _profiler():
+        sim.run(number_of_customers=100_000)
+    grew = COUNTERS.since(before)
+    assert sim.total_customers < 100_000 and sim.budget_cut is False
+    assert grew["sims_timed_out"] == 1 and grew["sims_budget_cut"] == 0
+    (s,) = _new_spans(t0, "des")
+    assert s.attrs["budget_cut"] == 0 and s.attrs["timed_out"] == 1
+
+
 def test_counted_decodes_add_up_to_the_sims(tmp_path):
     """With a watchdog that no sim reaches, every sim is decoded or skipped
     by the reference's zero-roll shortcut, and its span says which. These
@@ -250,7 +295,7 @@ def test_healthz_carries_the_counters_and_a_request_its_spans(tmp_path):
     assert health["avg_latency_s"] == pytest.approx(reply["latency_s"], abs=1e-4)
     assert set(health["counters"]) == set(COUNTER_NAMES)
     assert health["counters"]["sims_run"] >= 1
-    assert "sims_capped" in health["counters"]
+    assert "sims_capped" in health["counters"] and "sims_budget_cut" in health["counters"]
 
     (request,) = _new_spans(t0, "request")
     (wait,) = _new_spans(t0, "lock_wait")
@@ -265,6 +310,27 @@ def test_healthz_carries_the_counters_and_a_request_its_spans(tmp_path):
     assert gen.parent_id == request.span_id
     replies = _new_spans(t0, "http.reply")
     assert replies and all(s.attrs["bytes"] > 0 for s in replies)
+
+
+def test_a_gandes_request_records_each_stage_under_its_request():
+    """One GAN-DES request on the CPU: its ``generator``, ``des``, ``midi``,
+    ``synth``, ``wav`` and ``mel`` spans lie inside its ``request`` and carry
+    its trace id; the sim's span says whether its wall budget cut it."""
+    svc = GenerationService("gandes", device="cpu", lock=threading.Lock())
+    t0 = time.perf_counter_ns()
+    with _profiler():
+        reply = svc.generate(n=1, seed=5)
+    assert reply["mel_shape"] == [1, 128, 216]
+    (request,) = _new_spans(t0, "request")
+    assert request.attrs == {"model": "gandes", "n": 1}
+    for name in ("generator", "des", "midi", "synth", "wav", "mel"):
+        found = _new_spans(t0, name)
+        assert found, name
+        for s in found:
+            assert s.trace_id == request.trace_id, name
+            assert request.start_ns <= s.start_ns <= s.end_ns <= request.end_ns, name
+    (des,) = _new_spans(t0, "des")
+    assert des.attrs["budget_cut"] in (0, 1) and des.attrs["events"] > 0
 
 
 class _Windows:
